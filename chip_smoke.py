@@ -1,0 +1,478 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py        # from the repository root, one CUDA card
+
+Phases, each printing one JSON line:
+
+1. build    compile every CUDA kernel from ``src/repro_torch/csrc`` with nvcc
+            (one process per source, all at once) and print the build time
+            and the ptxas register/spill report.
+2. kernels  hold each kernel against its plain PyTorch version on the card,
+            at the serving shapes and at a 2048-token context (B=8, 128
+            pages per sequence): paged_attention in bf16 and fp32 within the
+            JAX package's kernel-test tolerances (fp32 2e-5, bf16 3e-2),
+            page_gather/page_scatter bitwise.  Time kernel, plain version and
+            a library yardstick in turns (CUDA events around device work
+            only, L2 flushed before each launch, median of 30 after
+            warm-up), and the wrapper's host time per call.
+3. serve    the main path: ``ServeEngine`` on full-width smollm-135m (bf16,
+            random weights from a seed) at the launcher's shapes — 16
+            requests of 4-24 prompt tokens x 16 new tokens, batch 8, page 16,
+            512 pages, 32 pages per sequence, prefill bucket 32 — plus a
+            registered 20-token prefix (not a page multiple) and a request of
+            that prefix + 1 token, which forces a decode-time copy-on-write.
+            Launch counts are zeroed just before and read just after; every
+            kernel must have launched.
+4. check    the outputs: an fp32 full-width engine run whose greedy tokens
+            must equal the port's own unbatched contiguous decode, and, for
+            the bf16 run, each generated token's contiguous-decode logit
+            within tolerance of the maximum logit (near-ties make bf16
+            argmax flaky).
+5. profile  one decode step with 8 live lanes: host wall time per step with
+            and without ``torch.profiler``, device busy time, idle share,
+            device ops per step and the costliest ops.
+
+Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
+max error, kernel/plain/library times, and the bound: bytes moved over
+3.35 TB/s or operations over the peak rate, whichever is larger), the card's
+name and power limit from nvidia-smi, and, last, the ``{"ok": true, ...}``
+line.  Any failed check raises before that line (non-zero exit).  Without a
+CUDA card, or without the rest of the repository beside it, it exits
+non-zero without a result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
+SPIN_CYCLES = 10_000_000            # >= 5 ms at the H100's <= 1.98 GHz clock
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+REPLACES = {
+    "paged_attention": "src/repro/kernels/paged_attention/kernel.py:74",
+    "page_gather": "src/repro/kernels/page_gather/kernel.py:29",
+    "page_scatter": "src/repro/kernels/page_gather/kernel.py:49",
+}
+SOURCES = {
+    "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
+    "page_gather": "src/repro_torch/csrc/page_gather.cu",
+    "page_scatter": "src/repro_torch/csrc/page_gather.cu",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+class CheckFailed(AssertionError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise CheckFailed(msg)
+
+
+# ------------------------------------------------------------------ timing
+
+
+def time_ms(torch, fn, flush, reps: int = 30, warmup: int = 3):
+    """(median device ms, median host enqueue ms) of one call.
+
+    The L2 is flushed before each call.  A spin kernel (>= 5 ms) keeps the
+    card busy while the host enqueues the call, so the events bracket device
+    work only, not the Python and launch overhead between them (that is the
+    host time, reported apart; every host time measured so far is far below
+    the spin)."""
+    for _ in range(warmup):
+        fn()
+    dev, host = [], []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end))
+    dev.sort()
+    host.sort()
+    return dev[len(dev) // 2], host[len(host) // 2]
+
+
+def measure(torch, flush, kernel, plain, library) -> dict:
+    """Kernel, plain-version and library-call times, in turns (kernel,
+    plain, library, library, plain, kernel); each is the mean of its two
+    medians.  ``host_ms`` is the kernel wrapper's own host time per call."""
+    order = [("ms", kernel), ("plain_ms", plain), ("library_ms", library)]
+    runs = {k: [] for k, _ in order}
+    host = []
+    for key, fn in order + order[::-1]:
+        dev, h = time_ms(torch, fn, flush)
+        runs[key].append(dev)
+        if key == "ms":
+            host.append(h)
+    out = {k: sum(v) / len(v) for k, v in runs.items()}
+    out["host_ms"] = sum(host) / len(host)
+    return out
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------------ phase 2
+
+
+def attention_case(torch, rng, dtype, B, H, kvh, D, P, ps, pps, lengths):
+    import numpy as np
+
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32)).to("cuda", dt)
+    kp = torch.from_numpy(rng.standard_normal((P, ps, kvh, D), dtype=np.float32)).to("cuda", dt)
+    vp = torch.from_numpy(rng.standard_normal((P, ps, kvh, D), dtype=np.float32)).to("cuda", dt)
+    # distinct pages per sequence, page 0 left as scratch
+    table = np.stack([rng.choice(np.arange(1, P), size=pps, replace=False)
+                      for _ in range(B)]).astype(np.int32)
+    return (q, kp, vp, torch.from_numpy(table).cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def attention_cost(args, num_heads, dtype):
+    q, kp, _, table, lengths = args
+    isz = q.element_size()
+    _, ps, kvh, d = kp.shape
+    lens = [int(x) for x in lengths.tolist()]
+    kv_rows = sum(lens)
+    pages_read = sum(-(-n // ps) for n in lens)
+    nbytes = (q.shape[0] * num_heads * d * isz          # real query heads
+              + 2 * kv_rows * kvh * d * isz              # valid K and V rows
+              + pages_read * 4 + q.shape[0] * 4          # table entries, lengths
+              + q.numel() * isz)                         # output
+    flops = 4.0 * kv_rows * num_heads * d                # QK^T and PV
+    return bound_ms(nbytes, flops, dtype)
+
+
+def sdpa_yardstick(torch, args, num_heads):
+    """One library call on the KV gathered beforehand (gather not timed)."""
+    import torch.nn.functional as F
+
+    q, kp, vp, table, lengths = args
+    b, _, d = q.shape
+    _, ps, kvh, _ = kp.shape
+    S = table.shape[1] * ps
+    k = kp[table.long()].reshape(b, S, kvh, d).transpose(1, 2).contiguous()
+    v = vp[table.long()].reshape(b, S, kvh, d).transpose(1, 2).contiguous()
+    qh = q[:, :num_heads, None, :].contiguous()               # [B, nh, 1, D]
+    mask = (torch.arange(S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    try:
+        F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                                      enable_gqa=True)
+    except TypeError:                 # older torch: no enable_gqa, expand KV
+        rep = num_heads // kvh
+        ke, ve = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        return lambda: F.scaled_dot_product_attention(qh, ke, ve, attn_mask=mask)
+
+
+def phase_kernels(torch, flush):
+    import numpy as np
+
+    from repro_torch.kernels.page_gather.kernel import page_gather, page_scatter
+    from repro_torch.kernels.page_gather.ref import page_gather_ref, page_scatter_ref
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    rng = np.random.default_rng(0)
+    H, NH, KVH, D, PS = 16, 9, 3, 64, 16           # smollm-135m attention
+    serve_lens = [int(x) for x in rng.integers(4, 41, size=8)]
+    cases = {
+        "serve": dict(B=8, P=512, pps=32, lengths=serve_lens),
+        "ctx2048": dict(B=8, P=8 * 128 + 1, pps=128, lengths=[2048] * 8),
+    }
+    report = {"attention": [], "copies": []}
+    serve = {}
+    for case, c in cases.items():
+        for dtype in ("bfloat16", "float32"):
+            lengths = list(c["lengths"])
+            if case == "ctx2048" and dtype == "float32":
+                lengths[-1] = 0                      # length 0 -> zeros
+            args = attention_case(torch, rng, dtype, c["B"], H, KVH, D,
+                                  c["P"], PS, c["pps"], lengths)
+            out = paged_attention(*args, num_heads=NH)
+            ref = paged_attention_ref(*args, num_heads=NH)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            tol = TOL[dtype]
+            ok = bool((err <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
+            check(ok, f"paged_attention {case} {dtype}: max |err| {err.max().item()}")
+            check(bool((out[:, NH:] == 0).all()), "padded heads must be zero")
+            if 0 in lengths:
+                check(bool((out[lengths.index(0)] == 0).all()), "length-0 row must be zero")
+            times = measure(torch, flush, lambda: paged_attention(*args, num_heads=NH),
+                            lambda: paged_attention_ref(*args, num_heads=NH),
+                            sdpa_yardstick(torch, args, NH))
+            bnd, by = attention_cost(args, NH, dtype)
+            row = dict(case=case, dtype=dtype, max_abs_err=err.max().item(), **times,
+                       bound_ms=bnd, bound_by=by)
+            report["attention"].append(row)
+            if case == "serve" and dtype == "bfloat16":
+                serve["paged_attention"] = row
+
+    # page copies: a layer's pool viewed as [P, page_size*KVH*D] bf16;
+    # serve: COW gathers 1 page, a prefill installs 2; ctx2048: 128 pages
+    for case, P, n_gather, n_scatter in (("serve", 512, 1, 2), ("ctx2048", 1025, 128, 128)):
+        E = PS * KVH * D
+        pool = torch.from_numpy(rng.standard_normal((P, E), dtype=np.float32)).to("cuda", torch.bfloat16)
+        for name, n in (("page_gather", n_gather), ("page_scatter", n_scatter)):
+            ids = torch.from_numpy(rng.choice(P, size=n, replace=False).astype(np.int32)).cuda()
+            pages = torch.from_numpy(rng.standard_normal((n, E), dtype=np.float32)).to("cuda", torch.bfloat16)
+            if name == "page_gather":
+                out, ref = page_gather(pool, ids), page_gather_ref(pool, ids)
+                run = lambda: page_gather(pool, ids)                      # noqa: E731
+                plain_fn = lambda: page_gather_ref(pool, ids)             # noqa: E731
+                lib_fn = lambda: pool.index_select(0, ids)                # noqa: E731
+            else:
+                out = page_scatter(pool.clone(), ids, pages)
+                ref = page_scatter_ref(pool.clone(), ids, pages)
+                run = lambda: page_scatter(pool, ids, pages)              # noqa: E731
+                plain_fn = lambda: page_scatter_ref(pool, ids, pages)     # noqa: E731
+                lib_fn = lambda: pool.index_copy_(0, ids.long(), pages)   # noqa: E731
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"{name} {case}: not bitwise equal to its plain version")
+            times = measure(torch, flush, run, plain_fn, lib_fn)
+            bnd, by = bound_ms(2.0 * n * E * pool.element_size() + 4 * n, 0.0, "bfloat16")
+            row = dict(case=case, name=name, pages=n, max_abs_err=0.0, **times,
+                       bound_ms=bnd, bound_by=by)
+            report["copies"].append(row)
+            if case == "serve":
+                serve[name] = row
+    emit({"phase": "kernels", **report})
+    return serve
+
+
+# ------------------------------------------------------------------ phase 3
+
+
+def make_requests(cfg, Request, n, seed, prefix):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for rid in range(n):
+        L = int(rng.integers(4, 24))
+        reqs.append(Request(rid=rid, max_new_tokens=16, deadline_s=120.0,
+                            prompt=rng.integers(0, cfg.vocab_size, size=L).astype(np.int32)))
+    cow = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, size=1).astype(np.int32)])
+    reqs.append(Request(rid=n, prompt=cow, max_new_tokens=16, deadline_s=120.0))
+    return reqs
+
+
+def serve(torch, cfg, params, n_requests, seed):
+    import numpy as np
+
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, EngineConfig(
+        max_batch=8, page_size=16, num_pages=512, max_pages_per_seq=32,
+        prefill_bucket=32), device="cuda")
+    prefix = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, size=20).astype(np.int32)
+    reqs = make_requests(cfg, Request, n_requests, seed, prefix)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.register_prefix(prefix)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained(max_steps=10_000)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(eng.finished) == len(reqs) and not eng.active and not eng.waiting,
+          "engine did not drain")
+    check(all(r.done and not r.expired for r in eng.finished), "a request expired")
+    prefix_pages = sum(len(p.pages) for p in eng._prefixes.values())
+    check(eng.allocator.used_pages == 1 + prefix_pages, "pool pages leaked")
+    for r in eng.finished:
+        check(all(0 <= t < cfg.vocab_size for t in r.generated), "token outside the vocabulary")
+    return eng, reqs, seconds
+
+
+def phase_profile(torch, cfg, params, steps: int = 8):
+    """Where a decode step's time goes: 8 full lanes of the main path's
+    engine, timed without and then with ``torch.profiler``."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, EngineConfig(
+        max_batch=8, page_size=16, num_pages=512, max_pages_per_seq=32,
+        prefill_bucket=32), device="cuda")
+    rng = np.random.default_rng(11)
+    for rid in range(8):
+        eng.submit(Request(rid=rid, max_new_tokens=4 + 2 * steps,
+                           prompt=rng.integers(0, cfg.vocab_size, size=16).astype(np.int32)))
+    for _ in range(2):                        # admit all lanes, warm up
+        eng.step()
+    check(len(eng.active) == 8, "profile: expected 8 live lanes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        prof_step_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # device-side events only (CPU ops also carry their kernels' time)
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    emit({"phase": "profile", "lanes": 8, "steps": steps, "step_ms": step_ms,
+          "profiled_step_ms": prof_step_ms,
+          "device_busy_ms_per_step": busy_ms if kernels else None,
+          "device_idle_share": (1 - busy_ms / prof_step_ms) if kernels else None,
+          "device_ops_per_step": launches if kernels else None,
+          "top_device_ops": [{"name": e.key[:80], "calls_per_step": e.count / steps,
+                              "ms_per_step": dev_us(e) / 1e3 / steps} for e in top]})
+
+
+def contiguous_decode(torch, M, cfg, params, prompt, n_new, forced=None):
+    """Unbatched greedy decode through a contiguous cache; with ``forced``
+    tokens, teacher-forced.  Returns (tokens, per-step logits)."""
+    toks = [int(t) for t in prompt]
+    cache = M.init_cache(cfg, 1, len(toks) + n_new + 8, device="cuda")
+    _, cache = M.prefill(cfg, params, {"tokens": torch.tensor([toks[:-1]], dtype=torch.int32,
+                                                              device="cuda")}, cache)
+    out, logits_all = [], []
+    cur = len(toks) - 1
+    for i in range(n_new):
+        logits, cache = M.decode_step(cfg, params, cache,
+                                      torch.tensor([toks[-1]], dtype=torch.int32, device="cuda"),
+                                      torch.tensor([cur], dtype=torch.int32, device="cuda"))
+        logits_all.append(logits[0, :cfg.vocab_size].float())
+        nxt = int(logits[0].argmax()) if forced is None else int(forced[i])
+        out.append(nxt)
+        toks.append(nxt)
+        cur += 1
+    return out, logits_all
+
+
+# ------------------------------------------------------------------ main
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.models as M
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 means fp32 (check phase)
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. build
+    t0 = time.perf_counter()
+    reports = K.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": {n: [ln.strip() for ln in r.splitlines()
+                        if "registers" in ln or "spill" in ln] for n, r in reports.items()}})
+
+    # 2. kernels against their plain versions
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    kstats = phase_kernels(torch, flush)
+    del flush
+
+    # 3. the main path
+    cfg = get_config("smollm-135m")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    init_s = time.perf_counter() - t0
+    serve(torch, cfg, params, 2, seed=7)               # warm-up: cuBLAS, allocator
+    K.reset_launch_counts()
+    eng, reqs, seconds = serve(torch, cfg, params, 16, seed=0)
+    launches = dict(K.launch_counts)
+    tokens = sum(len(r.generated) for r in eng.finished)
+    emit({"phase": "serve", "arch": cfg.name, "dtype": cfg.compute_dtype,
+          "init_params_s": init_s, "requests_served": len(eng.finished), "tokens": tokens,
+          "seconds": seconds, "tok_per_s": tokens / seconds, "steps": eng.stats["steps"],
+          "prefills": eng.stats["prefills"], "cow_copies": eng.stats["cow_copies"],
+          "prefix_hits": eng.stats["prefix_hits"], "launches": launches})
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+    check(eng.stats["cow_copies"] > 0 and eng.stats["prefix_hits"] > 0,
+          "the prefix request did not share pages / copy on write")
+
+    # 4. outputs: bf16 logits margin, fp32 exact greedy tokens
+    cow_req = reqs[-1]
+    _, logits = contiguous_decode(torch, M, cfg, eng.params, cow_req.prompt, 16,
+                                  forced=cow_req.generated)
+    tol = TOL["bfloat16"]
+    margins = []
+    for step, (lg, tok) in enumerate(zip(logits, cow_req.generated)):
+        check(bool(torch.isfinite(lg).all()), "non-finite logits")
+        top = lg.max()
+        gap = (top - lg[tok]).item()
+        margins.append(gap)
+        check(gap <= tol["atol"] + tol["rtol"] * abs(top.item()),
+              f"bf16 step {step}: paged token {tok} is {gap} below the contiguous max")
+    cfg32 = cfg.replace(compute_dtype="float32")
+    eng32, reqs32, _ = serve(torch, cfg32, params, 3, seed=3)
+    for r in reqs32:
+        ref, _ = contiguous_decode(torch, M, cfg32, params, r.prompt, r.max_new_tokens)
+        check(ref == r.generated, f"fp32 rid {r.rid}: paged {r.generated} != contiguous {ref}")
+    emit({"phase": "check", "bf16_max_gap_to_top_logit": max(margins),
+          "bf16_tokens_equal_to_contiguous_argmax": sum(m == 0.0 for m in margins),
+          "fp32_requests_equal": len(reqs32), "fp32_cow_copies": eng32.stats["cow_copies"]})
+
+    # 5. where a decode step's time goes (bf16, 8 lanes)
+    phase_profile(torch, cfg, eng.params)
+
+    rows = []
+    for name in ("paged_attention", "page_gather", "page_scatter"):
+        s = kstats[name]
+        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                     "replaces": REPLACES[name], "launches": launches[name],
+                     "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                     "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                     "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+    emit({"kernels": rows})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

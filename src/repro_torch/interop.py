@@ -1,0 +1,109 @@
+"""Tree and array interop between the JAX package's numpy trees and torch.
+
+Two rules the parity tests and later slices depend on:
+
+* **Flatten order.** :func:`tree_flatten` sorts dict keys, as
+  ``jax.tree_util`` does; ``torch.utils._pytree`` keeps insertion order
+  instead (``{'b': 1, 'a': 2}`` flattens to ``[2, 1]`` under JAX and
+  ``[1, 2]`` under torch).  Packed images and parameter init both walk
+  trees in this order.  ``None`` is an empty subtree, as in JAX.
+* **bf16.** ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16`` arrays, so
+  bf16 crosses as its bit pattern: ``.view(np.uint16)`` on the numpy side,
+  ``.view(torch.bfloat16)`` on the torch side (and back).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+import numpy as np
+import torch
+
+# treedef nodes: ("leaf",) | ("none",) | (kind, keys_or_len, children)
+
+
+def tree_flatten(tree: Any) -> Tuple[List[Any], tuple]:
+    """Leaves in JAX order (dict keys sorted) and a treedef to rebuild."""
+    leaves: List[Any] = []
+
+    def walk(node):
+        if node is None:
+            return ("none",)
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
+        if isinstance(node, (list, tuple)):
+            kind = "list" if isinstance(node, list) else "tuple"
+            return (kind, len(node), tuple(walk(c) for c in node))
+        leaves.append(node)
+        return ("leaf",)
+
+    treedef = walk(tree)
+    return leaves, treedef
+
+
+def tree_unflatten(treedef: tuple, leaves: List[Any]) -> Any:
+    it = iter(leaves)
+
+    def build(td):
+        kind = td[0]
+        if kind == "leaf":
+            return next(it)
+        if kind == "none":
+            return None
+        children = [build(c) for c in td[2]]
+        if kind == "dict":
+            return dict(zip(td[1], children))
+        return children if kind == "list" else tuple(children)
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the treedef holds")
+    return out
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    leaves, td = tree_flatten(tree)
+    return tree_unflatten(td, [fn(x) for x in leaves])
+
+
+def from_numpy(arr: np.ndarray, device="cpu") -> torch.Tensor:
+    """numpy array (bf16 included) -> torch tensor on ``device``."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch tensor -> numpy.  bf16 comes back as its ``np.uint16`` bit
+    pattern (view it as ``ml_dtypes.bfloat16`` where that is installed)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_from_numpy(tree: Any, device="cuda", cfg=None) -> Any:
+    """The JAX package's ``init_params`` tree, as numpy arrays, -> the
+    port's parameter tree: identical keys, shapes and dtypes.
+
+    With ``cfg``, checks the invariant the port's decode relies on: the
+    ``wo`` rows of padded query heads are zero (the paged-attention kernel
+    writes zeros for those heads instead of computing them).
+    """
+    from . import resolve_device
+
+    dev = resolve_device(device)
+    params = tree_map(lambda a: from_numpy(np.asarray(a), dev), tree)
+    if cfg is not None and cfg.padded_heads != cfg.num_heads:
+        rows = cfg.num_heads * cfg.head_dim
+        for seg in params["segments"]:
+            wo = seg["attn"]["wo"]                    # [L, Hp*D, E]
+            if torch.count_nonzero(wo[:, rows:]).item():
+                raise ValueError(
+                    "padded-head rows of wo are not zero; the port's decode "
+                    "drops padded heads and would change the function")
+    return params

@@ -1,0 +1,23 @@
+"""Public entry for paged decode attention: the ``impl`` switch.
+
+``"auto"`` launches the CUDA kernel for a CUDA tensor and runs the plain
+PyTorch version for a CPU tensor; ``"cuda"`` and ``"ref"`` force one.
+There is no fallback: on a CUDA tensor, ``"auto"`` launches or raises.
+"""
+
+from __future__ import annotations
+
+from .kernel import paged_attention as _cuda
+from .ref import paged_attention_ref
+
+
+def paged_attention(q, k_pool, v_pool, page_table, lengths, impl="auto",
+                    num_heads=None):
+    if impl == "auto":
+        impl = "cuda" if q.is_cuda else "ref"
+    if impl == "cuda":
+        return _cuda(q, k_pool, v_pool, page_table, lengths, num_heads=num_heads)
+    if impl == "ref":
+        return paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
+                                   num_heads=num_heads)
+    raise ValueError(f"unknown impl {impl!r}; choose auto, cuda or ref")

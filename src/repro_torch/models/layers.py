@@ -1,0 +1,237 @@
+"""Core transformer layers: norms, RoPE, GQA attention, MLPs.
+
+Port of ``repro/models/layers.py`` for the dense decoder path (no M-RoPE,
+no training VJP).  Attention implementations, as in the JAX package:
+
+  dense        full [Sq, Sk] score matrix + mask — exact baseline for short
+               sequences (the serving prefill buckets).
+  chunked      online softmax over KV chunks (a Python loop where JAX used
+               ``lax.scan``); ``causal_skip=True`` additionally skips fully
+               masked KV chunks per Q chunk.
+
+Prefill attention stays plain PyTorch, as the JAX package computes it
+outside any Pallas kernel.  All softmax/normalizer math runs in fp32
+regardless of compute dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -2.0e38  # fp32-safe mask value (avoid inf arithmetic -> NaN)
+
+
+# --------------------------------------------------------------------- norms
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- RoPE
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies for half-rotation RoPE: [head_dim // 2], fp32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections=None) -> torch.Tensor:
+    """Rotary embedding (LLaMA half-rotation layout).
+
+    x: [B, S, H, D]; positions: [B, S] int.  M-RoPE is not ported yet.
+    """
+    if mrope_sections is not None:
+        raise NotImplementedError("M-RoPE is not ported to repro_torch yet (ROADMAP.md)")
+    d2 = x.shape[-1] // 2
+    inv = rope_freqs(x.shape[-1], theta, x.device)          # [d2]
+    angles = positions.float()[..., None] * inv             # [B, S, d2]
+    cos = torch.cos(angles)[..., None, :]                   # [B, S, 1, d2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ attention
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    """Static attention behavior for one call."""
+
+    causal: bool = True
+    window: Optional[int] = None       # sliding-window size (None = full)
+    impl: str = "auto"                 # "dense" | "chunked" | "auto"
+    chunk_size: int = 512
+    causal_skip: bool = False          # triangular chunk schedule
+
+
+def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """[B,S,H,D] -> [B,S,KVH,rep,D] grouped for GQA einsums."""
+    b, s, h, d = q.shape
+    assert h % n_kv == 0, (h, n_kv)
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def _mask_bias(q_pos, k_pos, spec: AttnSpec, k_valid=None) -> torch.Tensor:
+    """[B, Sq, Sk] fp32 additive bias from positions (+ validity)."""
+    d = q_pos[:, :, None] - k_pos[:, None, :]
+    ok = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if spec.causal:
+        ok &= d >= 0
+    if spec.window is not None:
+        ok &= d < spec.window
+    if k_valid is not None:
+        ok &= k_valid[:, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=d.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def attention(q, k, v, spec: AttnSpec, q_positions, k_positions,
+              k_valid=None) -> torch.Tensor:
+    """GQA attention -> [B, Sq, H, D].  Softmax in fp32.
+
+    q: [B, Sq, H, D]; k/v: [B, Sk, KVH, D]; positions int [B, S*];
+    k_valid: optional [B, Sk] bool (cache validity).
+    """
+    impl = spec.impl
+    if impl == "auto":
+        impl = "chunked" if q.shape[1] * k.shape[1] > 1024 * 1024 else "dense"
+    if impl == "dense":
+        return _dense_attention(q, k, v, spec, q_positions, k_positions, k_valid)
+    return _chunked_attention(q, k, v, spec, q_positions, k_positions, k_valid)
+
+
+def _dense_attention(q, k, v, spec, q_pos, k_pos, k_valid):
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    qg = _group(q, kvh).float()                                  # [B,Sq,KVH,rep,D]
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale  # [B,KVH,rep,Sq,Sk]
+    s = s + _mask_bias(q_pos, k_pos, spec, k_valid)[:, None, None]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def _chunked_attention(q, k, v, spec, q_pos, k_pos, k_valid):
+    """Online softmax over KV chunks (the JAX package's ``_chunked_forward``
+    and, with ``causal_skip``, its triangular schedule)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    ck = min(spec.chunk_size, sk)
+    if k_valid is None:
+        k_valid = torch.ones((b, sk), dtype=torch.bool, device=k.device)
+    if sk % ck:                         # pad KV to a chunk multiple, invalid
+        pad = ck - sk % ck
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=2**30)
+        k_valid = F.pad(k_valid, (0, pad), value=False)
+    n_chunks = k.shape[1] // ck
+    qg = _group(q, kvh).float()
+    if spec.causal_skip and spec.causal and sq > 1:
+        # triangular schedule: each Q chunk sees only the KV chunks that can
+        # be unmasked for it (ascending, chunk-aligned positions)
+        cq = min(spec.chunk_size, sq)
+        assert sq % cq == 0
+        outs = []
+        for qi in range(sq // cq):
+            hi = min(((qi + 1) * cq - 1) // ck + 1, n_chunks)
+            lo = max(0, (qi * cq - spec.window) // ck) if spec.window is not None else 0
+            sl = slice(qi * cq, (qi + 1) * cq)
+            outs.append(_online_softmax(qg[:, sl], q_pos[:, sl], k, v, k_pos,
+                                        k_valid, spec, ck, range(lo, hi)))
+        return torch.cat(outs, dim=1).to(q.dtype)
+    return _online_softmax(qg, q_pos, k, v, k_pos, k_valid, spec, ck,
+                           range(n_chunks)).to(q.dtype)
+
+
+def _online_softmax(qg, q_pos, k, v, k_pos, k_valid, spec, ck, chunks):
+    """Flash recurrence over the given KV chunks -> [B, Sq, H, D] fp32."""
+    b, sq, kvh, rep, d = qg.shape
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((b, kvh, rep, sq), NEG_INF, dtype=torch.float32, device=qg.device)
+    l = torch.zeros((b, kvh, rep, sq), dtype=torch.float32, device=qg.device)
+    acc = torch.zeros((b, kvh, rep, sq, d), dtype=torch.float32, device=qg.device)
+    for c in chunks:
+        sl = slice(c * ck, (c + 1) * ck)
+        kc, vc = k[:, sl], v[:, sl]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kc.float()) * scale
+        s = s + _mask_bias(q_pos, k_pos[:, sl], spec, k_valid[:, sl])[:, None, None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        # p rounded to the value dtype, products accumulated in fp32 (the
+        # JAX package's preferred_element_type=float32)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p.to(vc.dtype).float(), vc.float())
+        m = m_new
+    o = acc / torch.clamp(l[..., None], min=1e-37)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, kvh * rep, d)
+
+
+def decode_attention(q, k_cache, v_cache, k_positions, cur_pos,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention against a (possibly ring) KV cache.
+
+    q: [B, 1, H, D]; k/v_cache: [B, S, KVH, D]; k_positions: [B, S] int
+    (< 0 => invalid); cur_pos: [B] int.
+    """
+    b, _, h, d = q.shape
+    kvh = k_cache.shape[2]
+    qg = _group(q, kvh).float()[:, 0]                          # [B,KVH,rep,D]
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float()) * scale
+    dlt = cur_pos[:, None] - k_positions                       # [B, S]
+    ok = (k_positions >= 0) & (dlt >= 0)
+    if window is not None:
+        ok &= dlt < window
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    s = s + torch.where(ok, zero, torch.full_like(zero, NEG_INF))[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------- MLPs
+
+
+def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+# ---------------------------------------------------------- GQA head mapping
+
+
+def make_qh_to_kv_map(num_heads: int, num_kv_heads: int, padded_heads: int,
+                      device=None) -> Optional[torch.Tensor]:
+    """Per-Q-head KV index map, or None when plain grouping is exact.
+
+    Padding Q heads changes ``i // group`` assignments, so any padded config
+    uses an explicit gather map: real head i -> i // group (original
+    grouping); padded heads -> kv 0 (their o_proj rows are zero).  Every
+    grouped (GQA) config also expands, as in the JAX package.
+    """
+    if padded_heads == num_heads and num_kv_heads == num_heads:
+        return None
+    group = max(1, num_heads // num_kv_heads)
+    idx = [min(i // group, num_kv_heads - 1) if i < num_heads else 0
+           for i in range(padded_heads)]
+    return torch.tensor(idx, dtype=torch.long, device=device)
+
+
+def expand_kv(k: torch.Tensor, qh_to_kv: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B,S,KVH,D] -> [B,S,H,D] per-Q-head KV when a gather map is needed."""
+    return k if qh_to_kv is None else k.index_select(2, qh_to_kv)

@@ -1,0 +1,148 @@
+"""PyTorch port: package boundary and tree/array interop with the JAX package.
+
+* importing ``repro_torch`` and every submodule loads neither ``jax`` nor any
+  ``repro`` module;
+* trees flatten in ``jax.tree_util`` order (dict keys sorted);
+* bf16 crosses numpy <-> torch bit-exactly;
+* ``params_from_numpy`` keeps the reference tree's keys, shapes and dtypes;
+* entry points default to the card and raise when there is none.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import repro.models as RM
+from repro.configs.registry import get_smoke_config as ref_smoke_config
+from repro_torch import interop
+from repro_torch.configs.registry import get_config, get_smoke_config
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.fixture(scope="module")
+def ref_params():
+    """The JAX package's seeded smoke-model weights (fp32)."""
+    return RM.init_params(ref_smoke_config("smollm-135m"), jax.random.key(0))
+
+
+_GUARD = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+    names.append(m.name)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_module():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _GUARD], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == [], f"repro_torch pulled in {res['bad']}"
+    for mod in ("repro_torch.interop", "repro_torch.kernels.paged_attention.kernel",
+                "repro_torch.kernels.page_gather.ops", "repro_torch.kvcache.paged_kv",
+                "repro_torch.models.transformer", "repro_torch.serve.engine",
+                "repro_torch.launch.serve", "repro_torch.core.pattern"):
+        assert mod in res["imported"], f"{mod} was not walked"
+
+
+def test_flatten_order_matches_jax_tree_util():
+    tree = {"b": 1, "a": {"z": [3, 4], "c": (5, None, 6)}, "m": None,
+            "k": [{"y": 7, "x": 8}]}
+    leaves, treedef = interop.tree_flatten(tree)
+    assert leaves == jax.tree_util.tree_leaves(tree)
+    assert interop.tree_unflatten(treedef, leaves) == tree
+    # torch's own pytree keeps insertion order: the reason interop exists
+    assert interop.tree_flatten({"b": 1, "a": 2})[0] == [2, 1]
+
+
+def test_param_tree_flatten_order_matches_reference_init(ref_params):
+    from repro_torch.models.transformer import param_specs
+    specs, _ = interop.tree_flatten(param_specs(get_smoke_config("smollm-135m")))
+    assert [tuple(s.shape) for s in specs] == [
+        tuple(a.shape) for a in jax.tree_util.tree_leaves(ref_params)]
+
+
+def test_bf16_round_trip_is_bit_exact():
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((5, 7)).astype(ml_dtypes.bfloat16)
+    with pytest.raises(TypeError):
+        torch.from_numpy(a)                       # why the bit-pattern detour
+    t = interop.from_numpy(a)
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
+    back = interop.to_numpy(t).view(ml_dtypes.bfloat16)
+    np.testing.assert_array_equal(back.view(np.uint16), a.view(np.uint16))
+    # from a JAX array too
+    j = jnp.asarray(a)
+    np.testing.assert_array_equal(
+        interop.to_numpy(interop.from_numpy(np.asarray(j))), a.view(np.uint16))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_params_from_numpy_keeps_keys_shapes_dtypes(ref_params, dtype):
+    # init_params(dtype=bf16) is the fp32 draw cast to bf16
+    ref = jax.tree_util.tree_map(lambda a: a.astype(dtype), ref_params)
+    tree = jax.tree_util.tree_map(np.asarray, ref)
+    params = interop.params_from_numpy(tree, device="cpu",
+                                       cfg=get_smoke_config("smollm-135m"))
+    want = jax.tree_util.tree_flatten_with_path(ref)[0]
+    got, _ = interop.tree_flatten(params)
+    assert len(got) == len(want)
+    for (path, r), t in zip(want, got):
+        assert tuple(t.shape) == tuple(r.shape), jax.tree_util.keystr(path)
+        assert str(t.dtype).split(".")[-1] == str(r.dtype), jax.tree_util.keystr(path)
+        np.testing.assert_array_equal(
+            t.float().numpy(), np.asarray(r, np.float32), err_msg=jax.tree_util.keystr(path))
+    assert set(params) == set(ref)
+    assert set(params["segments"][0]) == set(ref["segments"][0])
+
+
+def test_params_from_numpy_rejects_nonzero_padded_head_rows(ref_params):
+    tree = jax.tree_util.tree_map(np.array, ref_params)
+    tree["segments"][0]["attn"]["wo"][0, -1, 0] = 1.0    # a padded head's row
+    with pytest.raises(ValueError, match="padded-head"):
+        interop.params_from_numpy(tree, device="cpu",
+                                  cfg=get_smoke_config("smollm-135m"))
+
+
+def test_registry_offers_only_ported_architectures():
+    assert get_config("smollm-135m").num_layers == 30
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_config("llama3-8b")
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    import repro_torch.models as M
+    from repro_torch.kvcache.paged_kv import PagedKVCache, PagedKVConfig
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("smollm-135m")
+    with pytest.raises(RuntimeError, match="cuda"):
+        M.init_params(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        PagedKVCache(PagedKVConfig(num_layers=1, num_kv_heads=1, head_dim=4))
+    params = M.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(cfg, params, EngineConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_main(["--arch", "smollm-135m", "--smoke"])
