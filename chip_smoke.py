@@ -12,10 +12,15 @@ Phases, each printing one JSON line:
             at the serving shapes and at a 2048-token context (B=8, 128
             pages per sequence): paged_attention in bf16 and fp32 within the
             JAX package's kernel-test tolerances (fp32 2e-5, bf16 3e-2),
-            page_gather/page_scatter bitwise.  Time kernel, plain version and
-            a library yardstick in turns (CUDA events around device work
-            only, L2 flushed before each launch, median of 30 after
-            warm-up), and the wrapper's host time per call.
+            page_gather/page_scatter bitwise; flash_attention in bf16 and
+            fp32 at smollm's prefill bucket (q [1,16,32,64], 9 real heads
+            over 3 KV heads), qwen2-1.5b's 4096-token causal prompt (q
+            [1,16,4096,128], 12 real heads over 2), a 256-token sliding
+            window and a ragged non-causal 200 x 333 case, its inputs
+            strided views as the model hands them over.  Time kernel, plain
+            version and a library yardstick in turns (CUDA events around
+            device work only, L2 flushed before each launch, median of 30
+            after warm-up), and the wrapper's host time per call.
 3. serve    the main path: ``ServeEngine`` on full-width smollm-135m (bf16,
             random weights from a seed) at the launcher's shapes — 16
             requests of 4-24 prompt tokens x 16 new tokens, batch 8, page 16,
@@ -32,6 +37,23 @@ Phases, each printing one JSON line:
 5. profile  one decode step with 8 live lanes: host wall time per step with
             and without ``torch.profiler``, device busy time, idle share,
             device ops per step and the costliest ops.
+6. long_prompt  qwen2-1.5b at full width (28 layers, d_model 1536, 12 heads
+            padded to 16 over 2 KV heads, head_dim 128, QKV bias, vocab
+            151936; bf16, random weights from seed 0, nothing cut): 4
+            requests of 1024-4096 prompt tokens (numpy seed 0) plus one of
+            exactly 4096, x 16 new tokens, batch 4, page 16, 1408 pages, 264
+            pages per sequence, prefill bucket 32; the 4096-token request's
+            first 4095 tokens are registered as a shared prefix, so its first
+            decode write copies a shared page.  Launch counts zeroed just
+            before and read just after; all four kernels must have launched.
+            Prefill ms per request, decode tok/s, peak device memory, and
+            one profiled 4096-token prefill (device busy, costliest ops).
+            Checks: drained with no expiry and no leaked page, tokens in the
+            vocabulary, an fp32 engine run of one 1100-token request x 8
+            tokens equal to unbatched contiguous decode whose prefill takes
+            explicit positions (the plain attention route), and the bf16
+            tokens of the shortest request within tolerance of that decode's
+            maximum logit.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
@@ -59,11 +81,20 @@ REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/kernel.py:74",
     "page_gather": "src/repro/kernels/page_gather/kernel.py:29",
     "page_scatter": "src/repro/kernels/page_gather/kernel.py:49",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:84",
 }
 SOURCES = {
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "page_gather": "src/repro_torch/csrc/page_gather.cu",
     "page_scatter": "src/repro_torch/csrc/page_gather.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+}
+# flash_attention cases: (B, H, real heads, KVH, Sq, Sk, D, causal, window)
+FLASH_CASES = {
+    "smollm_prefill": (1, 16, 9, 3, 32, 32, 64, True, None),
+    "qwen2_4096": (1, 16, 12, 2, 4096, 4096, 128, True, None),
+    "window256": (1, 16, 12, 2, 4096, 4096, 128, True, 256),
+    "ragged_200x333": (2, 16, 12, 2, 200, 333, 128, False, None),
 }
 
 
@@ -260,8 +291,74 @@ def phase_kernels(torch, flush):
             report["copies"].append(row)
             if case == "serve":
                 serve[name] = row
+    report["flash"] = flash_cases(torch, rng, flush)
+    serve["flash_attention"] = next(r for r in report["flash"]
+                                    if r["case"] == "qwen2_4096" and r["dtype"] == "bfloat16")
     emit({"phase": "kernels", **report})
     return serve
+
+
+def visible_pairs(B, sq, sk, causal, window):
+    """(q, k) pairs the mask leaves visible: what the work depends on."""
+    import numpy as np
+
+    qp = np.arange(sq)
+    hi = np.minimum(qp + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qp - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return B * int(np.clip(hi - lo, 0, None).sum())
+
+
+def sdpa_flash_yardstick(torch, q, k, v, nh, causal, window):
+    """One library call on the real heads (contiguous copies made
+    beforehand, not timed); timed only, the port never calls it."""
+    import torch.nn.functional as F
+
+    qh, kc, vc = q[:, :nh].contiguous(), k.contiguous(), v.contiguous()
+    kw = {"is_causal": causal and window is None}
+    if window is not None:
+        qp = torch.arange(q.shape[2], device="cuda")[:, None]
+        kp = torch.arange(k.shape[2], device="cuda")[None, :]
+        kw = {"attn_mask": (qp - kp < window) & ((kp <= qp) if causal else True)}
+    return lambda: F.scaled_dot_product_attention(qh, kc, vc, enable_gqa=True, **kw)
+
+
+def flash_cases(torch, rng, flush):
+    """flash_attention against its plain version, q/k/v as the model hands
+    them over: [B,S,*,D] tensors viewed as [B,*,S,D]."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rows = []
+    for case, (B, H, NH, KVH, sq, sk, D, causal, window) in FLASH_CASES.items():
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                       .to("cuda", dt).transpose(1, 2)
+                       for shape in ((B, sq, H, D), (B, sk, KVH, D), (B, sk, KVH, D)))
+            kw = dict(causal=causal, window=window, num_heads=NH)
+            out = flash_attention(q, k, v, **kw)
+            ref = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            tol = TOL[dtype]
+            ok = bool((err <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
+            check(ok, f"flash_attention {case} {dtype}: max |err| {err.max().item()}")
+            check(bool((out[:, NH:] == 0).all()), "flash_attention: padded heads must be zero")
+            times = measure(torch, flush, lambda: flash_attention(q, k, v, **kw),
+                            lambda: flash_attention_ref(q, k, v, **kw),
+                            sdpa_flash_yardstick(torch, q, k, v, NH, causal, window))
+            pairs = visible_pairs(B, sq, sk, causal, window)
+            isz = q.element_size()
+            nbytes = (B * NH * sq * D + 2 * B * KVH * sk * D + B * H * sq * D) * isz
+            bnd, by = bound_ms(nbytes, 4.0 * D * NH * pairs, dtype)
+            rows.append(dict(case=case, dtype=dtype, q=[B, H, sq, D], num_heads=NH, kvh=KVH,
+                             sk=sk, causal=causal, window=window, visible_pairs=pairs,
+                             max_abs_err=err.max().item(), **times, bound_ms=bnd,
+                             bound_by=by))
+            del q, k, v, out, ref, err
+    return rows
 
 
 # ------------------------------------------------------------------ phase 3
@@ -358,13 +455,18 @@ def phase_profile(torch, cfg, params, steps: int = 8):
                               "ms_per_step": dev_us(e) / 1e3 / steps} for e in top]})
 
 
-def contiguous_decode(torch, M, cfg, params, prompt, n_new, forced=None):
+def contiguous_decode(torch, M, cfg, params, prompt, n_new, forced=None, plain=False):
     """Unbatched greedy decode through a contiguous cache; with ``forced``
-    tokens, teacher-forced.  Returns (tokens, per-step logits)."""
+    tokens, teacher-forced; with ``plain``, the prefill is given explicit
+    positions and so takes the plain attention route, not the kernel.
+    Returns (tokens, per-step logits)."""
     toks = [int(t) for t in prompt]
     cache = M.init_cache(cfg, 1, len(toks) + n_new + 8, device="cuda")
-    _, cache = M.prefill(cfg, params, {"tokens": torch.tensor([toks[:-1]], dtype=torch.int32,
-                                                              device="cuda")}, cache)
+    batch = {"tokens": torch.tensor([toks[:-1]], dtype=torch.int32, device="cuda")}
+    if plain:
+        batch["positions"] = torch.arange(len(toks) - 1, dtype=torch.int32,
+                                          device="cuda")[None, :]
+    _, cache = M.prefill(cfg, params, batch, cache)
     out, logits_all = [], []
     cur = len(toks) - 1
     for i in range(n_new):
@@ -377,6 +479,174 @@ def contiguous_decode(torch, M, cfg, params, prompt, n_new, forced=None):
         toks.append(nxt)
         cur += 1
     return out, logits_all
+
+
+# ------------------------------------------------------------------ phase 6
+
+
+LONG_ENGINE = dict(max_batch=4, page_size=16, num_pages=1408, max_pages_per_seq=264,
+                   prefill_bucket=32)
+
+
+def long_prompt_requests(cfg, Request, seed=0, lens=None):
+    """4 prompts of 1024-4096 tokens and one of exactly 4096, x 16 new."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = lens or [int(n) for n in rng.integers(1024, 4097, size=4)] + [4096]
+    return [Request(rid=i, max_new_tokens=16, deadline_s=600.0,
+                    prompt=rng.integers(0, cfg.vocab_size, size=n).astype(np.int32))
+            for i, n in enumerate(lens)]
+
+
+def serve_timed(torch, cfg, params, ecfg, reqs, prefix=None):
+    """Register ``prefix`` (if any) and drain ``reqs`` through a fresh
+    engine, timing each prefill (synchronised before and after).  Returns
+    (engine, seconds, per-prefill (tokens, ms))."""
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, ecfg, device="cuda")
+    prefill_ms = []
+    run_prefill = eng._run_prefill
+
+    def timed(prompt):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_prefill(prompt)
+        torch.cuda.synchronize()
+        prefill_ms.append((len(prompt), (time.perf_counter() - t) * 1e3))
+        return out
+
+    eng._run_prefill = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if prefix is not None:
+        eng.register_prefix(prefix)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained(max_steps=10_000)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(eng.finished) == len(reqs) and not eng.active and not eng.waiting,
+          f"{cfg.name}: engine did not drain")
+    check(all(r.done and not r.expired for r in eng.finished), f"{cfg.name}: a request expired")
+    prefix_pages = sum(len(p.pages) for p in eng._prefixes.values())
+    check(eng.allocator.used_pages == 1 + prefix_pages, f"{cfg.name}: pool pages leaked")
+    for r in eng.finished:
+        check(all(0 <= t < cfg.vocab_size for t in r.generated),
+              f"{cfg.name}: token outside the vocabulary")
+    return eng, seconds, prefill_ms
+
+
+def profile_prefill(torch, eng, prompt):
+    """Where one long prefill's time goes: host wall ms with and without
+    ``torch.profiler``, device busy ms, and the costliest device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run_prefill = type(eng)._run_prefill          # not serve_timed's timing wrapper
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_prefill(eng, prompt)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_prefill(eng, prompt)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    emit({"phase": "long_prompt_prefill_profile", "prompt_tokens": len(prompt),
+          "wall_ms": wall_ms, "profiled_wall_ms": prof_ms,
+          "device_busy_ms": busy_ms if kernels else None,
+          "device_idle_share": (1 - busy_ms / prof_ms) if kernels else None,
+          "device_ops": sum(e.count for e in kernels) if kernels else None,
+          "top_device_ops": [{"name": e.key[:80], "calls": e.count, "ms": dev_us(e) / 1e3}
+                             for e in top]})
+
+
+def phase_long_prompt(torch, M, K):
+    """Long prompts on full-width qwen2-1.5b: the prefill path through
+    flash_attention, then decode through paged_attention."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import EngineConfig, Request
+
+    cfg = get_config("qwen2-1.5b")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")       # fp32, reused for fp32
+    init_s = time.perf_counter() - t0
+    ecfg = EngineConfig(**LONG_ENGINE)
+    warm = long_prompt_requests(cfg, Request, seed=1, lens=[4096])   # cuBLAS, allocator
+    warm[0].max_new_tokens = 2
+    serve_timed(torch, cfg, params, ecfg, warm)
+
+    # the 4096-token request's first 4095 tokens are a registered prefix (a
+    # shared document): it maps 256 shared pages and copies the partial last
+    # one on its first decode write (page_gather + page_scatter)
+    reqs = long_prompt_requests(cfg, Request, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    eng, seconds, prefill_ms = serve_timed(torch, cfg, params, ecfg, reqs,
+                                           prefix=reqs[-1].prompt[:-1])
+    launches = dict(K.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(r.generated) for r in eng.finished)
+    prefill_s = sum(ms for _, ms in prefill_ms) / 1e3
+    emit({"phase": "long_prompt", "arch": cfg.name, "dtype": cfg.compute_dtype,
+          "init_params_s": init_s, "prompt_tokens": [len(r.prompt) for r in reqs],
+          "requests_served": len(eng.finished), "tokens": tokens, "seconds": seconds,
+          "tok_per_s": tokens / seconds, "prefill_ms": prefill_ms,
+          "prefill_share": prefill_s / seconds,
+          "decode_tok_per_s": tokens / (seconds - prefill_s),
+          "request_latency_s": [r.latency_s for r in sorted(eng.finished, key=lambda r: r.rid)],
+          "steps": eng.stats["steps"], "peak_pages_used": eng.stats["peak_pages_used"],
+          "prefix_hits": eng.stats["prefix_hits"], "cow_copies": eng.stats["cow_copies"],
+          "peak_memory_bytes": peak, "launches": launches})
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the long-prompt path")
+    profile_prefill(torch, eng, reqs[-1].prompt[:-1])
+
+    # bf16: each token of the shortest request within tolerance of the
+    # maximum logit of a teacher-forced contiguous decode (plain route)
+    short = min(eng.finished, key=lambda r: len(r.prompt))
+    _, logits = contiguous_decode(torch, M, cfg, eng.params, short.prompt, 16,
+                                  forced=short.generated, plain=True)
+    tol = TOL["bfloat16"]
+    margins = []
+    for step, (lg, tok) in enumerate(zip(logits, short.generated)):
+        check(bool(torch.isfinite(lg).all()), "long prompt: non-finite logits")
+        top = lg.max()
+        gap = (top - lg[tok]).item()
+        margins.append(gap)
+        check(gap <= tol["atol"] + tol["rtol"] * abs(top.item()),
+              f"long prompt bf16 step {step}: token {tok} is {gap} below the contiguous max")
+    del eng, logits
+
+    # fp32: an 1100-token request, engine tokens equal to the plain route's
+    cfg32 = cfg.replace(compute_dtype="float32")
+    prompt32 = np.random.default_rng(2).integers(0, cfg.vocab_size, size=1100)
+    req32 = Request(rid=0, max_new_tokens=8, deadline_s=600.0, prompt=prompt32.astype(np.int32))
+    eng32, _, _ = serve_timed(torch, cfg32, params, EngineConfig(
+        max_batch=1, page_size=16, num_pages=160, max_pages_per_seq=80,
+        prefill_bucket=32), [req32])
+    ref, _ = contiguous_decode(torch, M, cfg32, params, req32.prompt, 8, plain=True)
+    check(ref == req32.generated,
+          f"long prompt fp32: paged {req32.generated} != contiguous plain route {ref}")
+    emit({"phase": "long_prompt_check", "bf16_prompt_tokens": len(short.prompt),
+          "bf16_max_gap_to_top_logit": max(margins),
+          "bf16_tokens_equal_to_contiguous_argmax": sum(m == 0.0 for m in margins),
+          "fp32_prompt_tokens": len(req32.prompt), "fp32_tokens_equal": len(ref)})
+    del eng32, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------------------ main
@@ -455,12 +725,22 @@ def main() -> int:
 
     # 5. where a decode step's time goes (bf16, 8 lanes)
     phase_profile(torch, cfg, eng.params)
+    del eng, eng32, params
+    torch.cuda.empty_cache()
 
+    # 6. long prompts on full-width qwen2-1.5b (the prefill path)
+    long_launches = phase_long_prompt(torch, M, K)
+
+    # launches: each kernel's count on the path that carries it (decode
+    # kernels on the serve phase, flash_attention on the long-prompt phase)
     rows = []
-    for name in ("paged_attention", "page_gather", "page_scatter"):
+    for name in ("paged_attention", "page_gather", "page_scatter", "flash_attention"):
         s = kstats[name]
+        counted = long_launches if name == "flash_attention" else launches
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name], "launches": launches[name],
+                     "replaces": REPLACES[name], "launches": counted[name],
+                     "launches_by_path": {"serve": launches[name],
+                                          "long_prompt": long_launches[name]},
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"], "library_ms": s["library_ms"]})

@@ -14,14 +14,16 @@ from .base import ModelConfig
 
 _MODULES = {
     "smollm-135m": "smollm_135m",
+    "qwen2-1.5b": "qwen2_1p5b",
+    "llama3-8b": "llama3_8b",
+    "deepseek-7b": "deepseek_7b",
 }
 
 # Architectures of the JAX package that the port does not run yet
 # (ROADMAP.md, Queue 1 item 9: the rest of the model zoo).
 _NOT_PORTED = (
-    "hymba-1.5b", "seamless-m4t-medium", "llama3-8b", "qwen2-1.5b",
-    "deepseek-7b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b",
-    "xlstm-1.3b",
+    "hymba-1.5b", "seamless-m4t-medium", "mixtral-8x7b",
+    "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b", "xlstm-1.3b",
 )
 
 ARCH_IDS = tuple(_MODULES)

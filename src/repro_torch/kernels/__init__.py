@@ -26,12 +26,12 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "page_gather")
+SOURCES = ("paged_attention", "page_gather", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launch_counts: Dict[str, int] = {"paged_attention": 0, "page_gather": 0,
-                                 "page_scatter": 0}
+                                 "page_scatter": 0, "flash_attention": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

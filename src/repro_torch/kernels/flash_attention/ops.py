@@ -1,0 +1,22 @@
+"""Public entry for prefill attention: the ``impl`` switch.
+
+``"auto"`` launches the CUDA kernel for a CUDA tensor and runs the plain
+PyTorch version for a CPU tensor; ``"cuda"`` and ``"ref"`` force one.
+There is no fallback: on a CUDA tensor, ``"auto"`` launches or raises.
+"""
+
+from __future__ import annotations
+
+from .kernel import flash_attention as _cuda
+from .ref import flash_attention_ref
+
+
+def flash_attention(q, k, v, causal=True, window=None, impl="auto", num_heads=None):
+    if impl == "auto":
+        impl = "cuda" if q.is_cuda else "ref"
+    if impl == "cuda":
+        return _cuda(q, k, v, causal=causal, window=window, num_heads=num_heads)
+    if impl == "ref":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   num_heads=num_heads)
+    raise ValueError(f"unknown impl {impl!r}; choose auto, cuda or ref")

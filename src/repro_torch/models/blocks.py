@@ -3,8 +3,10 @@
 A block provides ``block_param_specs(cfg, seg)`` (one layer's ParamSpec
 tree) and ``block_apply(cfg, seg, p, x, ctx) -> (x, new_cache_layer, aux)``.
 ``ctx`` carries the mode ("train" | "prefill" | "decode"), positions and
-the per-layer cache slice.  Other block kinds (MoE, Mamba, xLSTM,
-cross-attention) are not ported yet.
+the per-layer cache slice.  A prefill whose positions are the default
+``0..S-1`` runs its self-attention in the ``flash_attention`` kernel; a
+prefill with explicit positions keeps the plain ``attention``.  Other
+block kinds (MoE, Mamba, xLSTM, cross-attention) are not ported yet.
 
 Cache writes are **in-place** (JAX rebuilt the cache with ``.at[].set``):
 a writer returns the very tensors it was given, updated, so the caller can
@@ -23,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, Segment
+from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_attention
 from .common import ParamSpec, fan_in_init, ones_init, zeros_init
 from .layers import (
@@ -43,6 +46,9 @@ class BlockCtx:
     positions: torch.Tensor                     # [B, S]
     cache: Optional[Dict[str, torch.Tensor]] = None   # this layer's cache slice
     cur_pos: Optional[torch.Tensor] = None      # [B] decode position
+    # positions are 0..S-1 in every row (the caller passed none): prefill
+    # self-attention then takes the flash_attention kernel
+    default_positions: bool = False
 
 
 # ----------------------------------------------------------------- attention
@@ -101,7 +107,18 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
         return make_qh_to_kv_map(cfg.num_heads, cfg.num_kv_heads,
                                  cfg.padded_heads, x.device)
 
-    if ctx.mode in ("train", "prefill"):
+    if ctx.mode == "prefill" and ctx.default_positions:
+        # the kernel reads the [B,S,*,D] tensors as [B,*,S,D] views in place,
+        # attends the real heads over un-expanded KV and zeros the padded
+        # ones (their wo rows are zero); its output is [B,S,H,D] in memory
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            causal=True, window=window,
+                            num_heads=cfg.num_heads).transpose(1, 2)
+        if ctx.cache is not None:
+            new_cache = _write_prefill_cache(ctx.cache, k, v, q_pos, window)
+    elif ctx.mode in ("train", "prefill"):
+        # explicit positions (or training, which has no backward kernel):
+        # plain dense/chunked attention over expanded KV
         spec = AttnSpec(causal=True, window=window, impl="auto",
                         chunk_size=cfg.attn_chunk, causal_skip=cfg.causal_skip)
         qh_map = kv_map()

@@ -9,9 +9,11 @@ no training VJP).  Attention implementations, as in the JAX package:
                ``lax.scan``); ``causal_skip=True`` additionally skips fully
                masked KV chunks per Q chunk.
 
-Prefill attention stays plain PyTorch, as the JAX package computes it
-outside any Pallas kernel.  All softmax/normalizer math runs in fp32
-regardless of compute dtype.
+These are the plain paths.  A prefill over the default positions
+``0..S-1`` runs its attention in the ``flash_attention`` kernel instead
+(``models/blocks.py``), the drop-in the JAX package names for its Pallas
+kernel; explicit positions and training keep the functions here.  All
+softmax/normalizer math runs in fp32 regardless of compute dtype.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ Entry points (functions of (cfg, params, ...), as in the JAX package):
   param_specs / init_params       parameter tree (segments stacked [count, ...])
   embed_tokens / lm_logits        token embedding and tied/untied LM head
   init_cache                      contiguous cache for (batch, seq_len)
-  prefill                         writes the cache, returns last-position hidden
+  prefill                         writes the cache, returns last-position hidden;
+                                  without explicit ``positions`` its attention
+                                  runs the flash_attention kernel
   decode_step                     one token per sequence through the cache
 
 Each homogeneous segment runs as a Python loop over its stacked layers
@@ -19,6 +21,7 @@ yet.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -113,8 +116,7 @@ def _run_segment(cfg: ModelConfig, seg: Segment, seg_params: dict, x,
     for i in range(seg.count):
         layer_p = tree_map(lambda a: a[i], seg_params)
         cache_l = None if cache_seg is None else {k: t[i] for k, t in cache_seg.items()}
-        lctx = BlockCtx(mode=ctx.mode, positions=ctx.positions, cache=cache_l,
-                        cur_pos=ctx.cur_pos)
+        lctx = dataclasses.replace(ctx, cache=cache_l)
         x, new_cache, _ = block_apply(cfg, seg, layer_p, x, lctx)
         old_layers.append(cache_l)
         new_layers.append(new_cache)
@@ -155,10 +157,12 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: list
     x = embed_tokens(cfg, params, tokens)
     b, s = tokens.shape
     positions = batch.get("positions")
-    if positions is None:
+    default_positions = positions is None
+    if default_positions:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
-    ctx = BlockCtx(mode="prefill", positions=positions)
+    ctx = BlockCtx(mode="prefill", positions=positions,
+                   default_positions=default_positions)
     new_caches = []
     for i, seg in enumerate(cfg.decoder_plan()):
         x, nc = _run_segment(cfg, seg, params["segments"][i], x, ctx, cache[i])

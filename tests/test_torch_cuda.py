@@ -7,7 +7,7 @@ JAX package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances are the JAX package's kernel-test ones (fp32 2e-5, bf16 3e-2);
-page copies are bitwise.
+page copies are bitwise.  fp32 products are held in full fp32 (TF32 off).
 """
 
 import numpy as np
@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.page_gather import ops as gather_ops
 from repro_torch.kernels.paged_attention import ops as attn_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -27,9 +29,10 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -104,3 +107,81 @@ def test_engine_on_the_card_goes_through_every_kernel(cuda):
     assert all(r.done for r in reqs)
     assert eng.stats["cow_copies"] > 0
     assert all(n > 0 for n in K.launch_counts.values()), K.launch_counts
+
+
+def flash_inputs(seed, dtype, device, b, h, kvh, sq, sk, d):
+    """q/k/v as the model hands them over: [B,S,*,D] tensors viewed as
+    [B,*,S,D] (strided, no copy)."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(device, TORCH_DTYPE[dtype]).transpose(1, 2)
+                 for s in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,nh,kvh,sq,sk,d,causal,window", [
+    (1, 16, 9, 3, 32, 32, 64, True, None),          # smollm-135m prefill bucket
+    (1, 16, 12, 2, 1100, 1100, 128, True, None),    # qwen2-1.5b, ragged tiles
+    (2, 16, 12, 2, 300, 300, 128, True, 64),        # sliding window
+    (2, 8, 8, 2, 200, 333, 128, False, None),       # Sq != Sk, ragged
+    (1, 4, 4, 4, 56, 45, 64, False, 16),            # window without causality
+    (2, 4, 3, 1, 40, 40, 16, True, None),           # smoke shapes: D 16, padding
+    (1, 8, 6, 2, 24, 24, 8, True, None),            # qwen2 smoke: D 8
+    (1, 4, 4, 2, 33, 33, 10, True, None),           # D 10: no 16-byte loads
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, nh, kvh, sq, sk, d,
+                                              causal, window):
+    q, k, v = flash_inputs(7, dtype, cuda, b, h, kvh, sq, sk, d)
+    before = K.launch_counts["flash_attention"]
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window, num_heads=nh)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window, num_heads=nh)
+    torch.cuda.synchronize()
+    assert K.launch_counts["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert (got[:, nh:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_rows_without_keys_give_zeros(cuda, dtype):
+    """Window 16, Sq 70 > Sk 45, no causality: rows 60-69 see no key.  The
+    kernel gives zeros there (no NaN); the plain version, like the JAX
+    package's oracle, the mean of v.  The other rows agree."""
+    q, k, v = flash_inputs(9, dtype, cuda, 1, 4, 4, 70, 45, 64)
+    got = flash_ops.flash_attention(q, k, v, causal=False, window=16)
+    want = flash_attention_ref(q, k, v, causal=False, window=16)
+    assert (got[:, :, 60:] == 0).all()
+    torch.testing.assert_close(got[:, :, :60].float(), want[:, :, :60].float(), **TOL[dtype])
+
+
+def test_flash_attention_kernel_contiguous_inputs(cuda):
+    q, k, v = (t.contiguous() for t in flash_inputs(8, "bfloat16", cuda, 1, 4, 2, 130, 130, 64))
+    got = flash_ops.flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), flash_attention_ref(q, k, v).float(),
+                               **TOL["bfloat16"])
+
+
+def test_engine_long_prompts_on_the_card_match_the_cpu(cuda):
+    """qwen2 smoke (fp32): the engine on the card (flash_attention prefill,
+    paged_attention decode) generates the CPU engine's tokens."""
+    import repro_torch.models as M
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    cfg = get_smoke_config("qwen2-1.5b")
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(150, 380, size=4)]
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = ServeEngine(cfg, params, EngineConfig(
+            max_batch=2, page_size=8, num_pages=160, max_pages_per_seq=56,
+            prefill_bucket=128), device=dev)
+        K.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        eng.run_until_drained(max_steps=500)
+        out[str(dev)] = [r.generated for r in sorted(eng.finished, key=lambda r: r.rid)]
+    assert K.launch_counts["flash_attention"] == 4 * cfg.num_layers
+    assert out["cuda"] == out["cpu"]

@@ -55,6 +55,7 @@ def test_port_imports_no_jax_and_no_reference_module():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == [], f"repro_torch pulled in {res['bad']}"
     for mod in ("repro_torch.interop", "repro_torch.kernels.paged_attention.kernel",
+                "repro_torch.kernels.flash_attention.kernel",
                 "repro_torch.kernels.page_gather.ops", "repro_torch.kvcache.paged_kv",
                 "repro_torch.models.transformer", "repro_torch.serve.engine",
                 "repro_torch.launch.serve", "repro_torch.core.pattern"):
@@ -123,8 +124,11 @@ def test_params_from_numpy_rejects_nonzero_padded_head_rows(ref_params):
 
 def test_registry_offers_only_ported_architectures():
     assert get_config("smollm-135m").num_layers == 30
+    assert get_config("qwen2-1.5b").head_dim == 128
+    assert get_config("llama3-8b").num_kv_heads == 8
+    assert not get_config("deepseek-7b").tie_embeddings
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("llama3-8b")
+        get_config("mixtral-8x7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

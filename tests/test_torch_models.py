@@ -20,7 +20,7 @@ import repro.models as RM
 import repro_torch.models as M
 from repro.configs.registry import get_smoke_config as ref_smoke_config
 from repro_torch.configs.registry import get_smoke_config
-from repro_torch.interop import params_from_numpy
+from repro_torch.interop import params_from_numpy, tree_map
 from repro_torch.models.blocks import _gather_paged, _write_paged_cache
 from repro_torch.models.layers import attention, AttnSpec, decode_attention, expand_kv, make_qh_to_kv_map
 
@@ -143,3 +143,60 @@ def test_chunked_attention_matches_dense(causal_skip):
         chunked = attention(q, k, v, AttnSpec(window=window, impl="chunked", chunk_size=8,
                                               causal_skip=causal_skip), pos, pos)
         torch.testing.assert_close(chunked, dense, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3-8b", "deepseek-7b"])
+def test_dense_smoke_configs_match_reference(arch):
+    """The other dense configs of the port's registry (QKV bias and 6 of 8
+    padded heads over 2 KV heads; GQA 8 over 2; MHA with an untied head):
+    prefill (the flash_attention route) and 16 greedy decode steps against
+    the JAX package, fp32 logits within 1e-4, tokens identical."""
+    ref_cfg = ref_smoke_config(arch)
+    cfg = get_smoke_config(arch)
+    # the port's seeded weights feed both (the same tree: keys, shapes, dtypes)
+    params = M.init_params(cfg, seed=1, device="cpu")
+    ref_params = tree_map(lambda t: jnp.asarray(t.numpy()), params)
+    rng = np.random.default_rng(4)
+    B, S, steps = 2, 11, 16
+    prompt = rng.integers(1, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    rc = RM.init_cache(ref_cfg, B, S + steps + 1)
+    rh, rc = jax.jit(RM.prefill, static_argnums=0)(
+        ref_cfg, ref_params, {"tokens": jnp.asarray(prompt)}, rc)
+    tc = M.init_cache(cfg, B, S + steps + 1, device="cpu")
+    th, tc = M.prefill(cfg, params, {"tokens": torch.from_numpy(prompt)}, tc)
+    np.testing.assert_allclose(th.numpy(), np.asarray(rh), **TOL)
+    np.testing.assert_allclose(tc[0]["v"].numpy(), np.asarray(rc[0]["v"]), **TOL)
+
+    ref_decode = jax.jit(partial(RM.decode_step, ref_cfg))
+    tok = prompt[:, -1].copy()
+    cur = np.full(B, S, np.int32)
+    rtok, ttok = tok, tok
+    for _ in range(steps):
+        rl, rc = ref_decode(ref_params, rc, jnp.asarray(rtok), jnp.asarray(cur))
+        tl, tc = M.decode_step(cfg, params, tc, torch.from_numpy(ttok), torch.from_numpy(cur))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(rl), **TOL)
+        rtok = np.asarray(jnp.argmax(rl, axis=-1)).astype(np.int32)
+        ttok = tl.argmax(dim=-1).numpy().astype(np.int32)
+        np.testing.assert_array_equal(ttok, rtok)
+        cur = cur + 1
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-1.5b"])
+def test_flash_prefill_route_equals_explicit_positions_route(arch):
+    """Inside the port: a prefill without positions (flash_attention, padded
+    heads as zeros, un-expanded KV) equals one given positions 0..S-1 (plain
+    dense attention over expanded KV), hidden state and cache."""
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, seed=2, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(2, 37)).astype(np.int32))
+    pos = torch.arange(37, dtype=torch.int32).expand(2, 37)
+    h_flash, c_flash = M.prefill(cfg, params, {"tokens": tokens},
+                                 M.init_cache(cfg, 2, 40, device="cpu"))
+    h_plain, c_plain = M.prefill(cfg, params, {"tokens": tokens, "positions": pos},
+                                 M.init_cache(cfg, 2, 40, device="cpu"))
+    torch.testing.assert_close(h_flash, h_plain, atol=2e-5, rtol=2e-5)
+    # layer 0's KV precedes any attention: bitwise; later layers within fp32
+    for key in ("k", "v"):
+        torch.testing.assert_close(c_flash[0][key][0], c_plain[0][key][0], atol=0, rtol=0)
+        torch.testing.assert_close(c_flash[0][key], c_plain[0][key], atol=2e-5, rtol=2e-5)

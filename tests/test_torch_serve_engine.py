@@ -3,7 +3,8 @@
 Three scenarios of ``tests/test_serve_engine.py`` run in both packages on
 the smollm smoke model (the JAX package's weights, converted): the
 pool-exhaustion boundary, the seeded three-tenant storm, and prefix sharing
-with copy-on-write.  Generated tokens must be equal byte for byte, and the
+with copy-on-write.  A fourth serves prompts of a few hundred tokens on the
+qwen2 smoke model, whose prefill takes the ``flash_attention`` route.  Generated tokens must be equal byte for byte, and the
 counters ``prefix_hits``, ``cow_copies``, ``shed_requests`` and ``expired``
 (plus the scheduling counters) equal.  The port's launcher runs once on the
 CPU as well.
@@ -15,10 +16,11 @@ import pytest
 
 import repro.models as RM
 import repro.serve.engine as jax_engine
+import repro_torch.models as M
 import repro_torch.serve.engine as torch_engine
 from repro.configs.registry import get_smoke_config as ref_smoke_config
 from repro_torch.configs.registry import get_smoke_config
-from repro_torch.interop import params_from_numpy
+from repro_torch.interop import params_from_numpy, tree_map
 from repro_torch.launch.serve import main as serve_main
 
 COUNTERS = ("prefix_hits", "cow_copies", "shed_requests", "expired", "steps",
@@ -26,12 +28,29 @@ COUNTERS = ("prefix_hits", "cow_copies", "shed_requests", "expired", "steps",
             "shared_pages_mapped", "peak_pages_used")
 
 
-@pytest.fixture
-def both(models, monkeypatch):
+def _jit_reference_prefill(monkeypatch):
     # the JAX engine calls prefill eagerly (one trace per request); jit it so
     # each bucket shape compiles once — same function, a fraction of the time
     monkeypatch.setattr(jax_engine.T, "prefill", jax.jit(RM.prefill, static_argnums=0))
+
+
+@pytest.fixture
+def both(models, monkeypatch):
+    _jit_reference_prefill(monkeypatch)
     return models
+
+
+@pytest.fixture
+def both_qwen2(monkeypatch):
+    """qwen2 smoke (QKV bias, 6 heads padded to 8 over 2 KV heads), the
+    port's seeded weights fed to both packages."""
+    _jit_reference_prefill(monkeypatch)
+    ref_cfg = ref_smoke_config("qwen2-1.5b")
+    cfg = get_smoke_config("qwen2-1.5b")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    ref_params = tree_map(lambda t: jax.numpy.asarray(t.numpy()), params)
+    return {"jax": (jax_engine, ref_cfg, ref_params, {}),
+            "torch": (torch_engine, cfg, params, {"device": "cpu"})}
 
 
 @pytest.fixture(scope="module")
@@ -113,6 +132,25 @@ def prefix_cow(mod, cfg, make):
     return eng, reqs
 
 
+def long_prompts(mod, cfg, make):
+    """Prompts of a few hundred tokens over page 8, two lanes: each prefill
+    (bucket 256 or 384) installs 19-48 pages, and decode crosses pages."""
+    eng = make(mod.EngineConfig(max_batch=2, page_size=8, num_pages=160,
+                                max_pages_per_seq=56, prefill_bucket=128))
+    rng = np.random.default_rng(9)
+    reqs = [mod.Request(rid=i, max_new_tokens=6, prompt=rng.integers(
+        1, cfg.vocab_size, int(rng.integers(150, 380))).astype(np.int32)) for i in range(4)]
+    for r in reqs:
+        eng.submit(r)
+    return eng, reqs
+
+
+def test_long_prompts_match_reference(both_qwen2):
+    gen, stats, _ = run_both(both_qwen2, long_prompts)
+    assert stats["prefills"] == 4 and all(len(g) == 6 for g in gen.values())
+    assert stats["peak_pages_used"] > 60
+
+
 def test_pool_exhaustion_boundary_matches_reference(both):
     _, stats, _ = run_both(both, exhaustion_boundary)
     assert stats["evictions"] >= 1, "scenario must actually exhaust the pool"
@@ -132,5 +170,13 @@ def test_prefix_sharing_cow_matches_reference(both):
 def test_launcher_runs_on_cpu(capsys):
     assert serve_main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
                        "--requests", "3", "--max-new", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "served 3/3 requests, 9 tokens" in out and "on cpu" in out
+
+
+def test_launcher_serves_long_prompts_on_cpu(capsys):
+    assert serve_main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
+                       "--requests", "3", "--max-new", "3", "--page-size", "8",
+                       "--min-prompt", "100", "--max-prompt", "300"]) == 0
     out = capsys.readouterr().out
     assert "served 3/3 requests, 9 tokens" in out and "on cpu" in out
