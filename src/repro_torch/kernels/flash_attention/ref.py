@@ -5,7 +5,8 @@ oracle the CUDA kernel is held against.  It computes what the JAX package's
 ``flash_attention_ref`` computes (fp32 scores, a ``NEG_INF`` mask on
 top-left aligned positions, fp32 softmax), plus ``num_heads``: heads at or
 past it are padding and come back as zeros, and real head ``i`` reads KV
-head ``i // (num_heads // KVH)``.
+head ``i // (num_heads // KVH)``.  A row that sees no key (a window with
+Sq > Sk) comes back as zeros, as from the kernel.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def flash_attention_ref(q, k, v, causal: bool = True, window: Optional[int] = No
     if window is not None:
         ok &= qp - kp < window
     s = s.masked_fill(~ok, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(s, dim=-1) * ok.any(dim=-1, keepdim=True)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float()).reshape(b, nh, sq, d)
     out = torch.zeros_like(q)
     out[:, :nh] = o.to(q.dtype)

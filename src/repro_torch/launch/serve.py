@@ -10,9 +10,6 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --smoke --device cpu --requests 4 --max-new 4
-  # long prompts (prefill through the flash_attention kernel)
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
-      --min-prompt 1024 --max-prompt 4097 --max-batch 4 --num-pages 1408
 """
 
 from __future__ import annotations
@@ -33,9 +30,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--min-prompt", type=int, default=4,
-                    help="prompt lengths are drawn from [min-prompt, max-prompt)")
-    ap.add_argument("--max-prompt", type=int, default=24)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=512)
     ap.add_argument("--max-batch", type=int, default=8)
@@ -55,13 +49,13 @@ def main(argv=None) -> int:
     eng = ServeEngine(cfg, params, EngineConfig(
         max_batch=args.max_batch, page_size=args.page_size,
         num_pages=args.num_pages,
-        max_pages_per_seq=max(32, (args.max_prompt + args.max_new) // args.page_size + 4),
+        max_pages_per_seq=max(32, (args.max_new + 64) // args.page_size + 4),
         prefill_bucket=32), device=args.device)
 
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
     for rid in range(args.requests):
-        L = int(rng.integers(args.min_prompt, args.max_prompt))
+        L = int(rng.integers(4, 24))
         eng.submit(Request(
             rid=rid,
             prompt=rng.integers(0, cfg.vocab_size, size=L).astype(np.int32),

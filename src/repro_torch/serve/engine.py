@@ -86,6 +86,7 @@ class Request:
     finished_at: Optional[float] = None
     slo_miss: bool = False              # finished after its deadline
     expired: bool = False               # gave up after max_restarts
+    prefill_ms: float = 0.0             # time of its prefills (see _mark)
 
     @property
     def done(self) -> bool:
@@ -189,6 +190,7 @@ class ServeEngine:
                       "prefix_drops": 0, "peak_pages_used": 0,
                       "per_tenant": {}}
         self._caches = self._init_caches()
+        self._pending_prefills: list = []   # (request, start mark, end mark)
 
     # -------------------------------------------------------------- tenants
 
@@ -517,6 +519,7 @@ class ServeEngine:
         tail writes into it (DESIGN.md §16.4).
         """
         t0 = time.perf_counter()
+        start = self._mark()
         e = self.ecfg
         ps = e.page_size
         prompt = req.prompt[:-1]
@@ -574,8 +577,33 @@ class ServeEngine:
         self.stats["prefills"] += 1
         self._tstats(req.tenant)["prefills"] += 1
         self._note_pool()
+        self._pending_prefills.append((req, start, self._mark()))
         dt = time.perf_counter() - t0
         self._est_prefill_s = 0.8 * self._est_prefill_s + 0.2 * dt
+
+    def _mark(self):
+        """A point in the device's work: a recorded CUDA event on the card
+        (no synchronisation), the host clock on the CPU."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _settle_prefill_times(self, wait: bool = False) -> None:
+        """Add each finished prefill's time (prefill and page install) to
+        its request's ``prefill_ms``: device time between its events on the
+        card, host time on the CPU.  With ``wait``, waits for the device."""
+        pending = []
+        for req, start, end in self._pending_prefills:
+            if isinstance(end, float):
+                req.prefill_ms += (end - start) * 1e3
+            elif wait or end.query():
+                end.synchronize()
+                req.prefill_ms += start.elapsed_time(end)
+            else:
+                pending.append((req, start, end))
+        self._pending_prefills = pending
 
     # --------------------------------------------------------------- decode
 
@@ -630,6 +658,7 @@ class ServeEngine:
             torch.from_numpy(tokens).to(self.device),
             torch.from_numpy(cur).to(self.device))
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
+        self._settle_prefill_times()            # the copy above synchronised
         for rid in live:
             lane = self.lane_of[rid]
             req = self.active[rid]
@@ -820,8 +849,9 @@ class ServeEngine:
     def run_until_drained(self, max_steps: int = 10_000) -> None:
         for _ in range(max_steps):
             if not self.waiting and not self.active:
-                return
+                break
             self.step()
+        self._settle_prefill_times(wait=True)
 
 
 # ---------------------------------------------------------------- helpers

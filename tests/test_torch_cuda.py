@@ -109,6 +109,22 @@ def test_engine_on_the_card_goes_through_every_kernel(cuda):
     assert all(n > 0 for n in K.launch_counts.values()), K.launch_counts
 
 
+# per (b, head, q row): ||out - ref|| / ||ref|| over D.  Late rows of a long
+# causal prompt average many keys and |o| shrinks (~0.03 at 1100 tokens), so
+# TOL alone would let tens of percent of error through there.
+ROW_REL_TOL = dict(float32=2e-5, bfloat16=1e-2)
+
+
+def max_row_rel_err(got, want):
+    """Largest relative error over the rows where ``want`` is not zero;
+    rows where ``want`` is zero must be zero in ``got``."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    norm = want.float().norm(dim=-1)
+    live = norm > 0
+    assert (diff[~live] == 0).all()
+    return (diff[live] / norm[live]).max().item()
+
+
 def flash_inputs(seed, dtype, device, b, h, kvh, sq, sk, d):
     """q/k/v as the model hands them over: [B,S,*,D] tensors viewed as
     [B,*,S,D] (strided, no copy)."""
@@ -139,19 +155,20 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, nh, kvh, sq, sk
     assert K.launch_counts["flash_attention"] == before + 1
     assert got.shape == q.shape and got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert max_row_rel_err(got, want) <= ROW_REL_TOL[dtype]
     assert (got[:, nh:] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_rows_without_keys_give_zeros(cuda, dtype):
     """Window 16, Sq 70 > Sk 45, no causality: rows 60-69 see no key.  The
-    kernel gives zeros there (no NaN); the plain version, like the JAX
-    package's oracle, the mean of v.  The other rows agree."""
+    kernel and its plain version both give zeros there (no NaN)."""
     q, k, v = flash_inputs(9, dtype, cuda, 1, 4, 4, 70, 45, 64)
     got = flash_ops.flash_attention(q, k, v, causal=False, window=16)
     want = flash_attention_ref(q, k, v, causal=False, window=16)
-    assert (got[:, :, 60:] == 0).all()
-    torch.testing.assert_close(got[:, :, :60].float(), want[:, :, :60].float(), **TOL[dtype])
+    assert (got[:, :, 60:] == 0).all() and (want[:, :, 60:] == 0).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert max_row_rel_err(got, want) <= ROW_REL_TOL[dtype]
 
 
 def test_flash_attention_kernel_contiguous_inputs(cuda):
@@ -185,3 +202,4 @@ def test_engine_long_prompts_on_the_card_match_the_cpu(cuda):
         out[str(dev)] = [r.generated for r in sorted(eng.finished, key=lambda r: r.rid)]
     assert K.launch_counts["flash_attention"] == 4 * cfg.num_layers
     assert out["cuda"] == out["cpu"]
+    assert all(r.prefill_ms > 0 for r in eng.finished) and not eng._pending_prefills

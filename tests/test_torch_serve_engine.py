@@ -174,9 +174,19 @@ def test_launcher_runs_on_cpu(capsys):
     assert "served 3/3 requests, 9 tokens" in out and "on cpu" in out
 
 
-def test_launcher_serves_long_prompts_on_cpu(capsys):
-    assert serve_main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
-                       "--requests", "3", "--max-new", "3", "--page-size", "8",
-                       "--min-prompt", "100", "--max-prompt", "300"]) == 0
-    out = capsys.readouterr().out
-    assert "served 3/3 requests, 9 tokens" in out and "on cpu" in out
+
+def test_engine_times_each_prefill():
+    """The port's engine adds each prefill's time to its request (host time
+    on the CPU, device time between CUDA events on the card)."""
+    cfg = get_smoke_config("smollm-135m")
+    eng = torch_engine.ServeEngine(cfg, M.init_params(cfg, seed=0, device="cpu"),
+                                   torch_engine.EngineConfig(
+                                       max_batch=2, page_size=8, num_pages=64,
+                                       max_pages_per_seq=16, prefill_bucket=16), device="cpu")
+    rng = np.random.default_rng(3)
+    for rid in range(3):
+        eng.submit(torch_engine.Request(rid=rid, max_new_tokens=2, prompt=rng.integers(
+            1, cfg.vocab_size, 12).astype(np.int32)))
+    eng.run_until_drained(max_steps=100)
+    assert len(eng.finished) == 3 and not eng._pending_prefills
+    assert all(r.prefill_ms > 0 for r in eng.finished)
