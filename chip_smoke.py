@@ -9,8 +9,11 @@ Phases, each printing one JSON line:
             (one process per source, all at once) and print the build time
             and the ptxas register/spill report.
 2. kernels  hold each kernel against its plain PyTorch version on the card,
-            at the serving shapes and at a 2048-token context (B=8, 128
-            pages per sequence): paged_attention in bf16 and fp32 within the
+            at the serving shapes, at a 2048-token context (B=8, 128 pages
+            per sequence) and at qwen2-1.5b's long-context decode (q
+            [4,16,128], 12 real heads over 2 KV heads, 264 pages per
+            sequence, phase 6's first-wave lengths 3637/2981/2594/1853):
+            paged_attention in bf16 and fp32 within the
             JAX package's kernel-test tolerances (fp32 2e-5, bf16 3e-2),
             page_gather/page_scatter bitwise; flash_attention in bf16 and
             fp32 at smollm's prefill bucket (q [1,16,32,64], 9 real heads
@@ -38,7 +41,8 @@ Phases, each printing one JSON line:
             argmax flaky).
 5. profile  one decode step with 8 live lanes: host wall time per step with
             and without ``torch.profiler``, device busy time, idle share,
-            device ops per step and the costliest ops.
+            device ops per step, paged_attention's device time and share,
+            and the costliest ops.
 6. long_prompt  qwen2-1.5b at full width (28 layers, d_model 1536, 12 heads
             padded to 16 over 2 KV heads, head_dim 128, QKV bias, vocab
             151936; bf16, random weights from seed 0, nothing cut): 4
@@ -50,8 +54,10 @@ Phases, each printing one JSON line:
             before and read just after; all four kernels must have launched.
             Prefill ms per request (the engine's device time between CUDA
             events), decode tok/s, peak device memory (only the bf16
-            weights on the card), and one profiled 4096-token prefill
-            (device busy, costliest ops).  Checks: drained with no expiry
+            weights on the card), one profiled 4096-token prefill
+            (device busy, costliest ops), and a profile of the decode step
+            with the first wave's 4 requests live at 1.8-3.6 k contexts (as
+            phase 5, on a fresh engine).  Checks: drained with no expiry
             and no leaked page, tokens in the vocabulary, an fp32 engine run
             of one 1100-token request x 8 tokens (run first, before the
             weights are cast to bf16) equal to unbatched contiguous decode
@@ -236,20 +242,25 @@ def phase_kernels(torch, flush):
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     rng = np.random.default_rng(0)
-    H, NH, KVH, D, PS = 16, 9, 3, 64, 16           # smollm-135m attention
+    PS = 16
+    smollm = dict(H=16, NH=9, KVH=3, D=64)         # smollm-135m attention
     serve_lens = [int(x) for x in rng.integers(4, 41, size=8)]
     cases = {
-        "serve": dict(B=8, P=512, pps=32, lengths=serve_lens),
-        "ctx2048": dict(B=8, P=8 * 128 + 1, pps=128, lengths=[2048] * 8),
+        "serve": dict(smollm, B=8, P=512, pps=32, lengths=serve_lens),
+        "ctx2048": dict(smollm, B=8, P=8 * 128 + 1, pps=128, lengths=[2048] * 8),
+        # qwen2-1.5b decode at phase 6's first wave (long_prompt_requests, seed 0)
+        "qwen2_decode": dict(H=16, NH=12, KVH=2, D=128, B=4, P=1408, pps=264,
+                             lengths=[3637, 2981, 2594, 1853]),
     }
     report = {"attention": [], "copies": []}
     serve = {}
     for case, c in cases.items():
+        NH = c["NH"]
         for dtype in ("bfloat16", "float32"):
             lengths = list(c["lengths"])
-            if case == "ctx2048" and dtype == "float32":
+            if case != "serve" and dtype == "float32":
                 lengths[-1] = 0                      # length 0 -> zeros
-            args = attention_case(torch, rng, dtype, c["B"], H, KVH, D,
+            args = attention_case(torch, rng, dtype, c["B"], c["H"], c["KVH"], c["D"],
                                   c["P"], PS, c["pps"], lengths)
             out = paged_attention(*args, num_heads=NH)
             ref = paged_attention_ref(*args, num_heads=NH)
@@ -265,8 +276,9 @@ def phase_kernels(torch, flush):
                             lambda: paged_attention_ref(*args, num_heads=NH),
                             sdpa_yardstick(torch, args, NH))
             bnd, by = attention_cost(args, NH, dtype)
-            row = dict(case=case, dtype=dtype, max_abs_err=err.max().item(), **times,
-                       bound_ms=bnd, bound_by=by)
+            row = dict(case=case, dtype=dtype, q=list(args[0].shape), num_heads=NH,
+                       kvh=c["KVH"], pages_per_seq=c["pps"], lengths=lengths,
+                       max_abs_err=err.max().item(), **times, bound_ms=bnd, bound_by=by)
             report["attention"].append(row)
             if case == "serve" and dtype == "bfloat16":
                 serve["paged_attention"] = row
@@ -274,7 +286,7 @@ def phase_kernels(torch, flush):
     # page copies: a layer's pool viewed as [P, page_size*KVH*D] bf16;
     # serve: COW gathers 1 page, a prefill installs 2; ctx2048: 128 pages
     for case, P, n_gather, n_scatter in (("serve", 512, 1, 2), ("ctx2048", 1025, 128, 128)):
-        E = PS * KVH * D
+        E = PS * smollm["KVH"] * smollm["D"]
         pool = torch.from_numpy(rng.standard_normal((P, E), dtype=np.float32)).to("cuda", torch.bfloat16)
         for name, n in (("page_gather", n_gather), ("page_scatter", n_scatter)):
             ids = torch.from_numpy(rng.choice(P, size=n, replace=False).astype(np.int32)).cuda()
@@ -428,11 +440,57 @@ def serve(torch, cfg, params, n_requests, seed):
     return eng, reqs, seconds
 
 
+def device_kernels(prof):
+    """(device-side events of a torch.profiler run, device us of one).  CPU
+    ops also carry their kernels' time, so only device events count."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    return ([e for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0], dev_us)
+
+
+def step_profile(torch, eng, steps: int) -> dict:
+    """Decode steps of a warmed engine, timed without and then with
+    ``torch.profiler``: host wall ms per step, device busy ms and ops per
+    step, idle share, ``paged_attention``'s device ms and share, and the
+    costliest device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        prof_step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels, dev_us = device_kernels(prof)
+    check(kernels, "profile: torch.profiler saw no device time")
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
+    attn = [e for e in kernels if "paged_attention" in e.key]
+    attn_ms = sum(dev_us(e) for e in attn) / 1e3 / steps
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    return {"steps": steps, "step_ms": step_ms, "profiled_step_ms": prof_step_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1 - busy_ms / prof_step_ms,
+            "device_ops_per_step": sum(e.count for e in kernels) / steps,
+            "paged_attention_ms_per_step": attn_ms,
+            "paged_attention_launches_per_step": sum(e.count for e in attn) / steps,
+            "paged_attention_share_of_busy": attn_ms / busy_ms,
+            "paged_attention_share_of_step": attn_ms / prof_step_ms,
+            "top_device_ops": [{"name": e.key[:80], "calls_per_step": e.count / steps,
+                                "ms_per_step": dev_us(e) / 1e3 / steps} for e in top]}
+
+
 def phase_profile(torch, cfg, params, steps: int = 8):
     """Where a decode step's time goes: 8 full lanes of the main path's
-    engine, timed without and then with ``torch.profiler``."""
+    engine."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 
@@ -446,35 +504,7 @@ def phase_profile(torch, cfg, params, steps: int = 8):
     for _ in range(2):                        # admit all lanes, warm up
         eng.step()
     check(len(eng.active) == 8, "profile: expected 8 live lanes")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        eng.step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        prof_step_ms = (time.perf_counter() - t0) * 1e3 / steps
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    # device-side events only (CPU ops also carry their kernels' time)
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
-    launches = sum(e.count for e in kernels) / steps
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    emit({"phase": "profile", "lanes": 8, "steps": steps, "step_ms": step_ms,
-          "profiled_step_ms": prof_step_ms,
-          "device_busy_ms_per_step": busy_ms if kernels else None,
-          "device_idle_share": (1 - busy_ms / prof_step_ms) if kernels else None,
-          "device_ops_per_step": launches if kernels else None,
-          "top_device_ops": [{"name": e.key[:80], "calls_per_step": e.count / steps,
-                              "ms_per_step": dev_us(e) / 1e3 / steps} for e in top]})
+    emit({"phase": "profile", "lanes": 8, **step_profile(torch, eng, steps)})
 
 
 def contiguous_decode(torch, M, cfg, params, prompt, n_new, forced=None, plain=False):
@@ -562,12 +592,7 @@ def profile_prefill(torch, eng, prompt):
         eng._run_prefill(prompt)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+    kernels, dev_us = device_kernels(prof)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     emit({"phase": "long_prompt_prefill_profile", "prompt_tokens": len(prompt),
@@ -577,6 +602,25 @@ def profile_prefill(torch, eng, prompt):
           "device_ops": sum(e.count for e in kernels) if kernels else None,
           "top_device_ops": [{"name": e.key[:80], "calls": e.count, "ms": dev_us(e) / 1e3}
                              for e in top]})
+
+
+def profile_long_decode(torch, cfg, params, steps: int = 8):
+    """Where a long-context decode step's time goes: a fresh engine with
+    the first wave's 4 requests (1853-3637-token prompts) live in its 4
+    lanes, prefilled, then warmed by one more step."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, EngineConfig(**LONG_ENGINE), device="cuda")
+    reqs = long_prompt_requests(cfg, Request, seed=0)[:4]
+    for r in reqs:
+        r.max_new_tokens = 2 * steps + 4
+        eng.submit(r)
+    for _ in range(2):                        # admit (prefill) all lanes, warm up
+        eng.step()
+    check(len(eng.active) == 4, "long decode profile: expected 4 live lanes")
+    contexts = [eng.seq_len[r.rid] for r in reqs]
+    emit({"phase": "long_decode_profile", "arch": cfg.name, "lanes": 4,
+          "contexts_at_start": contexts, **step_profile(torch, eng, steps)})
 
 
 def phase_long_prompt(torch, M, K):
@@ -641,6 +685,7 @@ def phase_long_prompt(torch, M, K):
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the long-prompt path")
     profile_prefill(torch, eng, reqs[-1].prompt[:-1])
+    profile_long_decode(torch, cfg, params)
 
     # bf16: each token of the shortest request within tolerance of the
     # maximum logit of a teacher-forced contiguous decode (plain route)

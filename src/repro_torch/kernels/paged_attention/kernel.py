@@ -1,25 +1,34 @@
 """Paged decode attention on the card: wrapper of ``csrc/paged_attention.cu``.
 
 Replaces the Pallas TPU kernel in ``repro/kernels/paged_attention/kernel.py``
-with a hand-written CUDA kernel: one block per (sequence, KV head) reads
-the sequence's pages through the page table, up to its length only, and
-keeps the online softmax in fp32.  The wrapper checks device, dtype, shape
-and contiguity, allocates the output, launches on PyTorch's current stream
-without synchronising, and raises if the launch was refused.
+with a hand-written CUDA kernel that splits each sequence's pages over
+blocks: a block stages its split's K/V rows with ``cp.async``, scores them
+on the tensor cores (bf16) or with FMA (fp32) under an fp32 online
+softmax, and a second kernel merges the splits in a fixed order.  The
+wrapper checks device, dtype, shape and contiguity, picks the split from
+shapes alone (:func:`split_plan`; it never reads ``lengths`` or the table
+on the host), allocates the output and the merge scratch, launches on
+PyTorch's current stream without synchronising, and raises if the launch
+was refused.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import check_launch, load_library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCKS_PER_SM = 4           # over the table: live lengths are shorter
+MIN_SPLIT_TOKENS = 128      # a split's least work: two bf16 stages
+MAX_SPLIT_PAGES = 1024      # page ids a block holds in shared memory
+MAX_SPLITS = 1024
 _fn = None
+_sms: Dict[int, int] = {}
 
 
 def _function():
@@ -27,11 +36,35 @@ def _function():
     if _fn is None:
         fn = load_library("paged_attention").repro_paged_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        fn.argtypes = [p] * 7 + [i] * 11 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def split_plan(pages_per_seq: int, page_size: int, b: int, kvh: int,
+               num_sms: int) -> Tuple[int, int]:
+    """(pages_per_split, splits) for a [b, pages_per_seq] table over kvh KV
+    heads: about ``BLOCKS_PER_SM`` blocks per SM over the whole table (a
+    block past its sequence's length exits at once), at least
+    ``MIN_SPLIT_TOKENS`` tokens a split, at most ``MAX_SPLIT_PAGES`` pages.
+    Shapes only: the same plan serves every step of a decode whatever the
+    lengths are."""
+    want = max(1, -(-BLOCKS_PER_SM * num_sms // (b * kvh)))
+    per = max(-(-MIN_SPLIT_TOKENS // page_size), -(-pages_per_seq // want))
+    per = max(min(per, pages_per_seq, MAX_SPLIT_PAGES), -(-pages_per_seq // MAX_SPLITS))
+    if per > MAX_SPLIT_PAGES:
+        raise ValueError(f"paged_attention kernel: a table of {pages_per_seq} pages needs "
+                         f"more than {MAX_SPLITS} splits of {MAX_SPLIT_PAGES} pages")
+    return per, -(-pages_per_seq // per)
+
+
+def _num_sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _sms.get(idx)
+    if n is None:
+        n = _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -69,12 +102,24 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention kernel: inputs must be contiguous")
     out = torch.empty_like(q)
-    if b == 0:
-        return out
+    pps = page_table.shape[1]
+    if b == 0 or pps == 0:
+        return out.zero_()
+    per, splits = split_plan(pps, page_size, b, kvh, _num_sms(q.device))
+    # partial (acc, m, l) of every split, merged in order by a second kernel;
+    # freed on return, the caching allocator hands it out again only to work
+    # ordered after both launches on this stream
+    scratch = None
+    if splits > 1:
+        scratch = torch.empty(b * kvh * splits * (nh // kvh) * (d + 2),
+                              dtype=torch.float32, device=q.device)
+    isz = q.element_size()
+    vec = ((d * isz) % 16 == 0 and k_pool.data_ptr() % 16 == 0
+           and v_pool.data_ptr() % 16 == 0)
     err = _function()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, h, nh, kvh, d,
-        p_total, page_size, page_table.shape[1], 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lengths.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        _DTYPES[q.dtype], b, h, nh, kvh, d, p_total, page_size, pps, per, splits,
+        1.0 / math.sqrt(d), int(vec), torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("paged_attention", err)
     return out

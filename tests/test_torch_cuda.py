@@ -72,6 +72,100 @@ def test_paged_attention_kernel_length_zero_and_long_context(cuda):
     assert (got[1] == 0).all()
 
 
+def check_against_plain(got, want, dtype, nh, lengths):
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert (got[:, nh:] == 0).all()
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert (got[i] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_split_edges(cuda, dtype):
+    """qwen2-1.5b's heads (12 real of 16 over 2 KV heads, D 128) at lengths
+    on and around the edges of a split: 0, 1, one split -1 / exact / +1,
+    the whole table."""
+    from repro_torch.kernels.paged_attention.kernel import _num_sms, split_plan
+
+    b, h, nh, kvh, d, ps, pps = 6, 16, 12, 2, 128, 16, 64
+    per, splits = split_plan(pps, ps, b, kvh, _num_sms(cuda))
+    assert splits > 1
+    t = per * ps
+    lengths = [0, 1, t - 1, t, t + 1, pps * ps]
+    args = attention_inputs(11, dtype, cuda, b, h, kvh, d, 400, ps, pps, lengths)
+    got = attn_ops.paged_attention(*args, num_heads=nh)
+    check_against_plain(got, paged_attention_ref(*args, num_heads=nh), dtype, nh, lengths)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,nh,kvh,d,ps,pps", [
+    (3, 4, 4, 4, 128, 16, 48),        # rep 1 (deepseek-7b)
+    (3, 16, 9, 3, 64, 16, 48),        # rep 3 in 16 heads (smollm-135m)
+    (3, 8, 8, 2, 128, 16, 48),        # rep 4 (llama3-8b's grouping)
+    (3, 16, 12, 2, 128, 16, 48),      # rep 6 in 16 heads (qwen2-1.5b)
+    (3, 8, 8, 1, 64, 8, 40),          # rep 8, page 8
+    (3, 4, 3, 1, 16, 4, 70),          # smoke shapes: D 16, page 4
+    (2, 8, 6, 2, 8, 8, 30),           # qwen2 smoke: D 8
+    (2, 8, 8, 1, 256, 16, 24),        # D 256 with rep 8
+    (2, 4, 4, 2, 10, 8, 20),          # D 10: rows not 16-byte aligned, no cp.async
+    (64, 8, 8, 8, 64, 16, 4),         # B * KVH fills the card: one split
+])
+def test_paged_attention_kernel_heads_and_widths(cuda, dtype, b, h, nh, kvh, d, ps, pps):
+    args = attention_inputs(12, dtype, cuda, b, h, kvh, d, b * pps + 3, ps, pps)
+    got = attn_ops.paged_attention(*args, num_heads=nh)
+    want = paged_attention_ref(*args, num_heads=nh)
+    check_against_plain(got, want, dtype, nh, args[4].tolist())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_unaligned_pool(cuda, dtype):
+    """A pool that does not start on 16 bytes takes the plain loads."""
+    b, h, kvh, d, pages, ps, pps = 2, 8, 2, 64, 40, 16, 16
+    args = list(attention_inputs(13, dtype, cuda, b, h, kvh, d, pages, ps, pps))
+    for i in (1, 2):
+        flat = torch.empty(args[i].numel() + 1, dtype=args[i].dtype, device=cuda)
+        view = flat[1:].view(args[i].shape)
+        view.copy_(args[i])
+        assert view.data_ptr() % 16 != 0
+        args[i] = view
+    got = attn_ops.paged_attention(*args)
+    torch.testing.assert_close(got.float(), paged_attention_ref(*args).float(), **TOL[dtype])
+
+
+def test_paged_attention_kernel_skips_out_of_pool_ids_past_the_length(cuda):
+    """Table entries past the length may be anything, even outside the
+    pool: they are never read."""
+    b, h, kvh, d, pages, ps, pps = 4, 8, 2, 128, 300, 16, 64
+    lengths = [5, 300, 17, 1000]
+    args = list(attention_inputs(14, "bfloat16", cuda, b, h, kvh, d, pages, ps, pps, lengths))
+    table = args[3].clone()
+    for i, n in enumerate(lengths):
+        used = -(-n // ps)
+        junk = torch.tensor([-1, pages, pages + 10**6, -(10**6)], dtype=torch.int32, device=cuda)
+        table[i, used:] = junk.repeat(pps)[: pps - used]
+    got = attn_ops.paged_attention(*args[:3], table, args[4])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), paged_attention_ref(*args).float(), **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_all_lanes_empty(cuda, dtype):
+    args = attention_inputs(15, dtype, cuda, 4, 16, 2, 128, 300, 16, 64, [0, 0, 0, 0])
+    got = attn_ops.paged_attention(*args, num_heads=12)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and (got == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_is_deterministic(cuda, dtype):
+    """The splits are merged in a fixed order: two calls agree bitwise."""
+    args = attention_inputs(16, dtype, cuda, 4, 16, 2, 128, 1100, 16, 264,
+                            [3637, 2981, 2594, 1853])
+    first = attn_ops.paged_attention(*args, num_heads=12)
+    second = attn_ops.paged_attention(*args, num_heads=12)
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("elems", [3072, 1000, 7])          # tail / unaligned rows
 def test_page_copy_kernels_match_plain_bitwise(cuda, dtype, elems):

@@ -21,6 +21,7 @@ from repro.kernels.paged_attention.kernel import paged_attention as jax_paged_at
 from repro.kernels.paged_attention.ref import paged_attention_ref as jax_paged_attention_ref
 from repro_torch.kernels.page_gather import ops as gather_ops
 from repro_torch.kernels.paged_attention import ops as attn_ops
+from repro_torch.kernels.paged_attention.kernel import MAX_SPLIT_PAGES, MAX_SPLITS, split_plan
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 TOL = dict(float32=dict(atol=2e-5, rtol=2e-5),
@@ -92,6 +93,40 @@ def test_paged_attention_padded_heads_are_zero(dtype):
     kern = jax_paged_attention(q_real, *jx[1:], interpret=True)
     np.testing.assert_allclose(to_f32(got[:, :nh]), to_f32(kern), **TOL[dtype])
     assert (got[:, nh:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_qwen2_grouping(dtype):
+    """qwen2-1.5b's grouping: 12 real heads padded to 16 over 2 KV heads
+    (head i reads KV head i // 6), D 128, on a tiny pool (page 8, 4 pages
+    a sequence, one length 0).  Real heads as the Pallas kernel over
+    q[:, :12]; padded heads zero."""
+    b, h, nh, kvh, d = 3, 16, 12, 2, 128
+    jx, tt = attention_inputs(7, dtype, b, h, kvh, d, 12, 8, 4, lengths=[32, 0, 13])
+    got = attn_ops.paged_attention(*tt, num_heads=nh)
+    kern = jax_paged_attention(jx[0][:, :nh], *jx[1:], interpret=True)
+    np.testing.assert_allclose(to_f32(got[:, :nh]), to_f32(kern), **TOL[dtype])
+    assert (got[:, nh:] == 0).all() and (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("pps,ps,b,kvh,want", [
+    (264, 16, 4, 2, (8, 33)),        # qwen2-1.5b decode: 8 pages (128 tokens) a split
+    (128, 16, 8, 3, (8, 16)),        # smollm-135m at a 2048-token context
+    (32, 16, 8, 3, (8, 4)),          # smollm-135m serving table
+    (4, 8, 3, 2, (4, 1)),            # a table narrower than one split
+    (64, 16, 128, 8, (64, 1)),       # B * KVH >= 4 blocks per SM: one split
+    (512, 16, 8, 3, (24, 22)),       # 8 k-token table: 22 blocks per (sequence, KV head)
+    (1 << 20, 16, 1, 1, (1024, 1024)),
+])
+def test_paged_attention_split_plan(pps, ps, b, kvh, want):
+    """Shapes alone choose the split: about 4 blocks per SM of 132 over the
+    table, at least 128 tokens a split, every page in exactly one split."""
+    per, splits = split_plan(pps, ps, b, kvh, 132)
+    assert (per, splits) == want
+    assert (splits - 1) * per < pps <= splits * per
+    assert per <= MAX_SPLIT_PAGES and splits <= MAX_SPLITS
+    with pytest.raises(ValueError):
+        split_plan(MAX_SPLITS * MAX_SPLIT_PAGES + 1, ps, b, kvh, 132)
 
 
 def test_paged_attention_impl_switch():
