@@ -15,6 +15,7 @@ was refused.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -42,6 +43,7 @@ def _function():
     return _fn
 
 
+@functools.lru_cache(maxsize=64)
 def split_plan(pages_per_seq: int, page_size: int, b: int, kvh: int,
                num_sms: int) -> Tuple[int, int]:
     """(pages_per_split, splits) for a [b, pages_per_seq] table over kvh KV
@@ -49,7 +51,8 @@ def split_plan(pages_per_seq: int, page_size: int, b: int, kvh: int,
     block past its sequence's length exits at once), at least
     ``MIN_SPLIT_TOKENS`` tokens a split, at most ``MAX_SPLIT_PAGES`` pages.
     Shapes only: the same plan serves every step of a decode whatever the
-    lengths are."""
+    lengths are, so it is cached.  ``sweep.py`` times other split sizes
+    against it."""
     want = max(1, -(-BLOCKS_PER_SM * num_sms // (b * kvh)))
     per = max(-(-MIN_SPLIT_TOKENS // page_size), -(-pages_per_seq // want))
     per = max(min(per, pages_per_seq, MAX_SPLIT_PAGES), -(-pages_per_seq // MAX_SPLITS))
