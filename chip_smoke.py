@@ -20,10 +20,13 @@ Phases, each printing one JSON line:
             fp32 at smollm's prefill bucket (q [1,16,32,64], 9 real heads
             over 3 KV heads), qwen2-1.5b's 4096-token causal prompt (q
             [1,16,4096,128], 12 real heads over 2), a 256-token sliding
-            window and a ragged non-causal 200 x 333 case, its inputs
-            strided views as the model hands them over, and besides each
-            output row within 1e-2 (bf16) / 2e-5 (fp32) of the plain row's
-            norm.  Time kernel, plain
+            window, a ragged non-causal 200 x 333 case, llama3-8b's heads at
+            4096 tokens (q [1,32,4096,128] over 8 KV heads) and smollm's at
+            2048 (D 64), its inputs strided views as the model hands them
+            over, and besides each output row within 1e-2 (bf16) / 2e-5
+            (fp32) of the plain row's norm.  Where bf16 takes the hopper
+            variant (TMA + wgmma), the generic kernel is checked and timed
+            beside it.  Time kernel, plain
             version and a library yardstick in turns (CUDA events around
             device work only, L2 flushed before each launch, median of 30
             after warm-up), and the wrapper's host time per call.
@@ -52,11 +55,14 @@ Phases, each printing one JSON line:
             pages per sequence, prefill bucket 32; the 4096-token request's
             first 4095 tokens are registered as a shared prefix, so its first
             decode write copies a shared page.  Launch counts zeroed just
-            before and read just after; all four kernels must have launched.
+            before and read just after; all four kernels must have launched,
+            and every flash_attention launch must have taken the hopper
+            variant.
             Prefill ms per request (the engine's device time between CUDA
             events), decode tok/s, peak device memory (only the bf16
             weights on the card), one profiled 4096-token prefill
-            (device busy, costliest ops), and a profile of the decode step
+            (device busy, flash_attention's device ms and share, costliest
+            ops), and a profile of the decode step
             with the first wave's 4 requests live at 1.8-3.6 k contexts (as
             phase 5, on a fresh engine).  Checks: drained with no expiry
             and no leaked page, tokens in the vocabulary, an fp32 engine run
@@ -68,7 +74,8 @@ Phases, each printing one JSON line:
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
-3.35 TB/s or operations over the peak rate, whichever is larger), the card's
+3.35 TB/s or operations over the peak rate, whichever is larger; for
+flash_attention also the variant taken and each variant's time), the card's
 name and power limit from nvidia-smi, and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises before that line (non-zero exit).  Without a
 CUDA card, or without the rest of the repository beside it, it exits
@@ -110,6 +117,8 @@ FLASH_CASES = {
     "qwen2_4096": (1, 16, 12, 2, 4096, 4096, 128, True, None),
     "window256": (1, 16, 12, 2, 4096, 4096, 128, True, 256),
     "ragged_200x333": (2, 16, 12, 2, 200, 333, 128, False, None),
+    "llama3_4096": (1, 32, 32, 8, 4096, 4096, 128, True, None),
+    "smollm_2048": (1, 16, 9, 3, 2048, 2048, 64, True, None),
 }
 
 
@@ -157,11 +166,14 @@ def time_ms(torch, fn, flush, reps: int = 30, warmup: int = 3):
     return dev[len(dev) // 2], host[len(host) // 2]
 
 
-def measure(torch, flush, kernel, plain, library) -> dict:
+def measure(torch, flush, kernel, plain, library, others=None) -> dict:
     """Kernel, plain-version and library-call times, in turns (kernel,
-    plain, library, library, plain, kernel); each is the mean of its two
-    medians.  ``host_ms`` is the kernel wrapper's own host time per call."""
-    order = [("ms", kernel), ("plain_ms", plain), ("library_ms", library)]
+    others, plain, library, library, plain, others, kernel); each is the
+    mean of its two medians.  ``others`` maps a key to another call timed
+    beside the kernel (another variant of it).  ``host_ms`` is the kernel
+    wrapper's own host time per call."""
+    order = [("ms", kernel), *(others or {}).items(), ("plain_ms", plain),
+             ("library_ms", library)]
     runs = {k: [] for k, _ in order}
     host = []
     for key, fn in order + order[::-1]:
@@ -362,7 +374,7 @@ def flash_cases(torch, rng, flush):
     them over: [B,S,*,D] tensors viewed as [B,*,S,D]."""
     import numpy as np
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import choose_variant, flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     rows = []
@@ -373,30 +385,46 @@ def flash_cases(torch, rng, flush):
                        .to("cuda", dt).transpose(1, 2)
                        for shape in ((B, sq, H, D), (B, sk, KVH, D), (B, sk, KVH, D)))
             kw = dict(causal=causal, window=window, num_heads=NH)
-            out = flash_attention(q, k, v, **kw)
+            variant = choose_variant(q, k, v)
             ref = flash_attention_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            tol = TOL[dtype]
-            ok = bool((err <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
-            check(ok, f"flash_attention {case} {dtype}: max |err| {err.max().item()}")
-            row_err = max_row_rel_err(out, ref, "flash_attention")
-            check(row_err <= ROW_REL_TOL[dtype],
-                  f"flash_attention {case} {dtype}: row relative error {row_err}")
-            check(bool((out[:, NH:] == 0).all()), "flash_attention: padded heads must be zero")
+            # the chosen variant, and where that is the hopper kernel, the
+            # generic one too: both are held to the plain version and timed
+            checked = {}
+            for var in dict.fromkeys((variant, "generic")):
+                out = flash_attention(q, k, v, variant=var, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs()
+                tol = TOL[dtype]
+                ok = bool((err <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
+                check(ok, f"flash_attention {case} {dtype} {var}: max |err| {err.max().item()}")
+                row_err = max_row_rel_err(out, ref, "flash_attention")
+                check(row_err <= ROW_REL_TOL[dtype],
+                      f"flash_attention {case} {dtype} {var}: row relative error {row_err}")
+                check(bool((out[:, NH:] == 0).all()),
+                      "flash_attention: padded heads must be zero")
+                checked[var] = (err.max().item(), row_err)
+                del out, err
+            err_max, row_err = checked[variant]
+            others = ({} if variant == "generic" else
+                      {"generic_ms": lambda: flash_attention(q, k, v, variant="generic", **kw)})
             times = measure(torch, flush, lambda: flash_attention(q, k, v, **kw),
                             lambda: flash_attention_ref(q, k, v, **kw),
-                            sdpa_flash_yardstick(torch, q, k, v, NH, causal, window))
+                            sdpa_flash_yardstick(torch, q, k, v, NH, causal, window), others)
             pairs = visible_pairs(B, sq, sk, causal, window)
             isz = q.element_size()
             nbytes = (B * NH * sq * D + 2 * B * KVH * sk * D + B * H * sq * D) * isz
             bnd, by = bound_ms(nbytes, 4.0 * D * NH * pairs, dtype)
+            variant_ms = {variant: times["ms"]}
+            if "generic_ms" in times:
+                variant_ms["generic"] = times.pop("generic_ms")
             rows.append(dict(case=case, dtype=dtype, q=[B, H, sq, D], num_heads=NH, kvh=KVH,
                              sk=sk, causal=causal, window=window, visible_pairs=pairs,
-                             max_abs_err=err.max().item(), max_row_rel_err=row_err,
-                             **times, bound_ms=bnd,
-                             bound_by=by))
-            del q, k, v, out, ref, err
+                             variant=variant, variant_ms=variant_ms,
+                             variant_errors={v: {"max_abs_err": e, "max_row_rel_err": r}
+                                             for v, (e, r) in checked.items()},
+                             max_abs_err=err_max, max_row_rel_err=row_err,
+                             **times, bound_ms=bnd, bound_by=by))
+            del q, k, v, ref
     return rows
 
 
@@ -598,13 +626,19 @@ def profile_prefill(torch, eng, prompt):
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
     kernels, dev_us = device_kernels(prof)
+    check(kernels, "prefill profile: torch.profiler saw no device time")
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    flash = [e for e in kernels if "flash" in e.key]
+    flash_ms = sum(dev_us(e) for e in flash) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     emit({"phase": "long_prompt_prefill_profile", "prompt_tokens": len(prompt),
           "wall_ms": wall_ms, "profiled_wall_ms": prof_ms,
-          "device_busy_ms": busy_ms if kernels else None,
-          "device_idle_share": (1 - busy_ms / prof_ms) if kernels else None,
-          "device_ops": sum(e.count for e in kernels) if kernels else None,
+          "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / prof_ms,
+          "device_ops": sum(e.count for e in kernels),
+          "flash_attention_ms": flash_ms,
+          "flash_attention_launches": sum(e.count for e in flash),
+          "flash_attention_kernels": sorted({e.key[:60] for e in flash}),
+          "flash_attention_share_of_busy": flash_ms / busy_ms,
           "top_device_ops": [{"name": e.key[:80], "calls": e.count, "ms": dev_us(e) / 1e3}
                              for e in top]})
 
@@ -630,10 +664,12 @@ def profile_long_decode(torch, cfg, params, steps: int = 8):
 
 def phase_long_prompt(torch, M, K):
     """Long prompts on full-width qwen2-1.5b: the prefill path through
-    flash_attention, then decode through paged_attention."""
+    flash_attention, then decode through paged_attention.  Returns (launch
+    counts, flash_attention's launches by variant)."""
     import numpy as np
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.models.transformer import cast_params
     from repro_torch.serve.engine import EngineConfig, Request
 
@@ -668,8 +704,10 @@ def phase_long_prompt(torch, M, K):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    FK.reset_variant_counts()
     eng, seconds = serve_timed(torch, cfg, params, ecfg, reqs, prefix=reqs[-1].prompt[:-1])
     launches = dict(K.launch_counts)
+    variants = dict(FK.variant_counts)
     peak = torch.cuda.max_memory_allocated()        # bf16 weights, pools, activations
     # every generated token comes out of a decode step: a prefill covers
     # prompt[:-1] and the last prompt token is the first decode input
@@ -686,9 +724,13 @@ def phase_long_prompt(torch, M, K):
           "request_latency_s": [r.latency_s for r in done],
           "steps": eng.stats["steps"], "peak_pages_used": eng.stats["peak_pages_used"],
           "prefix_hits": eng.stats["prefix_hits"], "cow_copies": eng.stats["cow_copies"],
-          "peak_memory_bytes": peak, "launches": launches})
+          "peak_memory_bytes": peak, "launches": launches,
+          "flash_attention_variants": variants})
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the long-prompt path")
+    check(variants == {"hopper": launches["flash_attention"], "generic": 0},
+          f"long prompt bf16: flash_attention launches by variant {variants}, "
+          f"all {launches['flash_attention']} should be hopper")
     profile_prefill(torch, eng, reqs[-1].prompt[:-1])
     profile_long_decode(torch, cfg, params)
 
@@ -712,7 +754,7 @@ def phase_long_prompt(torch, M, K):
           "fp32_prompt_tokens": len(req32.prompt), "fp32_tokens_equal": len(ref32)})
     del eng, logits, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, variants
 
 
 # ------------------------------------------------------------------ main
@@ -795,7 +837,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. long prompts on full-width qwen2-1.5b (the prefill path)
-    long_launches = phase_long_prompt(torch, M, K)
+    long_launches, flash_variants = phase_long_prompt(torch, M, K)
 
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
@@ -803,13 +845,20 @@ def main() -> int:
     for name in ("paged_attention", "page_gather", "page_scatter", "flash_attention"):
         s = kstats[name]
         counted = long_launches if name == "flash_attention" else launches
-        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name], "launches": counted[name],
-                     "launches_by_path": {"serve": launches[name],
-                                          "long_prompt": long_launches[name]},
-                     "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                     "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                     "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": counted[name],
+               "launches_by_path": {"serve": launches[name],
+                                    "long_prompt": long_launches[name]},
+               "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+               "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+               "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
+        if name == "flash_attention":
+            # the variant the main path took, and each variant's time at
+            # the main-path shape (qwen2's 4096-token prompt, bf16)
+            row["variant"] = s["variant"]
+            row["variants"] = {v: {"ms": ms, "long_prompt_launches": flash_variants[v]}
+                               for v, ms in s["variant_ms"].items()}
+        rows.append(row)
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -2,11 +2,13 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so``
-under the repository root (git-ignored; the hash is of the source, so an
-edited source rebuilds) and loaded with ``ctypes``.  :func:`build_all`
-starts one ``nvcc`` per source at once.  Nothing is built or loaded when
-this package is imported: the CPU tests import every module, and there is
-no ``nvcc`` there.
+under the repository root (git-ignored; the hash is of the source and the
+local ``csrc/*.cuh`` headers it includes, so an edited source or header
+rebuilds) and loaded with ``ctypes``.  Nothing links against libcuda: a
+kernel that needs one of its functions (the TMA tensor-map encoder) looks
+it up through the runtime.  :func:`build_all` starts one ``nvcc`` per
+source at once.  Nothing is built or loaded when this package is imported:
+the CPU tests import every module, and there is no ``nvcc`` there.
 
 A kernel that fails to build or launch raises; no wrapper falls back to
 the plain PyTorch version.  Each wrapper adds one to
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,10 +56,32 @@ def _nvcc() -> str:
                        "the port's CUDA kernels are built at first use on the card's host")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _local_headers(path: Path) -> List[Path]:
+    """Every header under ``csrc`` that ``path`` includes with quotes,
+    directly or through another such header, in include order."""
+    found: List[Path] = []
+    todo = [path]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            header = (CSRC / inc.decode()).resolve()
+            if header.is_file() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """``build/kernels/<name>-<hash>.so``; the hash covers the source, every
+    local header it includes and the flags, so editing any of them rebuilds."""
+    source = CSRC / f"{name}.cu"
+    h = hashlib.sha256(source.read_bytes())
+    for header in _local_headers(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES) -> Dict[str, str]:

@@ -300,3 +300,71 @@ def test_engine_long_prompts_on_the_card_match_the_cpu(cuda):
     assert K.launch_counts["flash_attention"] == 4 * cfg.num_layers
     assert out["cuda"] == out["cpu"]
     assert all(r.prefill_ms > 0 for r in eng.finished) and not eng._pending_prefills
+
+
+def check_flash(got, want, dtype, nh):
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert max_row_rel_err(got[:, :nh], want[:, :nh]) <= ROW_REL_TOL[dtype]
+    assert (got[:, nh:] == 0).all()
+
+
+def run_flash(q, k, v, expect_variant, **kw):
+    """One call through ``ops``; asserts the variant the wrapper chose."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    before = dict(flash_kernel.variant_counts)
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = flash_kernel.variant_counts
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == expect_variant) for n in after}
+    return got
+
+
+@pytest.mark.parametrize("b,h,nh,kvh,sq,sk,d,causal,window", [
+    (1, 16, 12, 2, 1100, 1100, 128, True, None),    # ragged tiles; rep 6 (qwen2-1.5b)
+    (1, 8, 8, 2, 129, 129, 128, True, None),        # one row past a q/KV tile
+    (1, 8, 8, 2, 1, 1, 128, True, None),            # a single token
+    (2, 8, 8, 2, 300, 100, 128, False, None),       # Sk < Sq, non-causal, B = 2
+    (1, 16, 12, 2, 700, 700, 128, True, 64),        # window inside a KV tile
+    (1, 16, 12, 2, 700, 700, 128, True, 256),       # window across KV-tile edges
+    (1, 4, 4, 4, 300, 300, 128, True, None),        # rep 1 (deepseek-7b)
+    (1, 16, 9, 3, 300, 300, 64, True, None),        # rep 3, padded heads (smollm-135m)
+    (1, 32, 32, 8, 520, 520, 128, True, None),      # rep 4 (llama3-8b)
+    (2, 16, 9, 3, 1100, 900, 64, False, 256),       # D 64, window without causality
+])
+def test_flash_attention_hopper_variant_edges(cuda, b, h, nh, kvh, sq, sk, d, causal, window):
+    """bf16 at D 64/128 with the model's strides takes the TMA/wgmma kernel
+    and matches the plain version at the tile, window and grouping edges."""
+    q, k, v = flash_inputs(21, "bfloat16", cuda, b, h, kvh, sq, sk, d)
+    kw = dict(causal=causal, window=window, num_heads=nh)
+    got = run_flash(q, k, v, "hopper", **kw)
+    check_flash(got, flash_attention_ref(q, k, v, **kw), "bfloat16", nh)
+
+
+def test_flash_attention_hopper_contiguous_inputs(cuda):
+    q, k, v = (t.contiguous() for t in flash_inputs(22, "bfloat16", cuda, 1, 16, 2, 600, 600, 128))
+    got = run_flash(q, k, v, "hopper", num_heads=12)
+    check_flash(got, flash_attention_ref(q, k, v, num_heads=12), "bfloat16", 12)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_flash_attention_unaligned_view_takes_the_generic_kernel(cuda, which):
+    """A q (or k) whose storage starts one element off 16 bytes cannot be
+    a TMA tensor map: the generic kernel takes it, and is right."""
+    args = list(flash_inputs(23, "bfloat16", cuda, 1, 16, 2, 300, 300, 128))
+    t = args[which]
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    view = flat[1:].view(t.transpose(1, 2).shape).transpose(1, 2)
+    view.copy_(t)
+    assert view.storage_offset() == 1 and view.data_ptr() % 16 != 0
+    args[which] = view
+    got = run_flash(*args, "generic", num_heads=12)
+    check_flash(got, flash_attention_ref(*args, num_heads=12), "bfloat16", 12)
+
+
+def test_flash_attention_hopper_is_deterministic(cuda):
+    q, k, v = flash_inputs(24, "bfloat16", cuda, 1, 16, 2, 1100, 1100, 128)
+    first = run_flash(q, k, v, "hopper", num_heads=12)
+    second = run_flash(q, k, v, "hopper", num_heads=12)
+    assert torch.equal(first, second)
