@@ -16,7 +16,13 @@ Phases, each printing one JSON line:
             paged_attention in bf16 and fp32 within the
             JAX package's kernel-test tolerances (fp32 2e-5, bf16 3e-2) and
             each real head's output row within 1e-2 (bf16) / 2e-5 (fp32) of
-            the plain row's norm; page_gather/page_scatter bitwise; flash_attention in bf16 and
+            the plain row's norm; page_gather/page_scatter bitwise, on one
+            layer's pool (serve: 1 and 2 pages; ctx2048: 128) and at the
+            engine's call shapes (``COPY_CASES``: smollm's and qwen2's
+            installs, a 4095-token one among them, and copies-on-write,
+            every layer of both pools), each variant of the copy kernel and
+            the parent's call pattern (a staging copy, one launch per layer)
+            held and timed; flash_attention in bf16 and
             fp32 at smollm's prefill bucket (q [1,16,32,64], 9 real heads
             over 3 KV heads), qwen2-1.5b's 4096-token causal prompt (q
             [1,16,4096,128], 12 real heads over 2), a 256-token sliding
@@ -37,7 +43,9 @@ Phases, each printing one JSON line:
             registered 20-token prefix (not a page multiple) and a request of
             that prefix + 1 token, which forces a decode-time copy-on-write.
             Launch counts are zeroed just before and read just after; every
-            kernel must have launched.
+            kernel must have launched, the page copies at most once per pool
+            for each install and copy-on-write (``LAUNCH_CAPS``), all on
+            the bulk variant.  Host ms of each install.
 4. check    the outputs: an fp32 full-width engine run whose greedy tokens
             must equal the port's own unbatched contiguous decode, and, for
             the bf16 run, each generated token's contiguous-decode logit
@@ -56,8 +64,8 @@ Phases, each printing one JSON line:
             first 4095 tokens are registered as a shared prefix, so its first
             decode write copies a shared page.  Launch counts zeroed just
             before and read just after; all four kernels must have launched,
-            and every flash_attention launch must have taken the hopper
-            variant.
+            every flash_attention launch must have taken the hopper
+            variant, and the page copies are held as in phase 3.
             Prefill ms per request (the engine's device time between CUDA
             events), decode tok/s, peak device memory (only the bf16
             weights on the card), one profiled 4096-token prefill
@@ -75,7 +83,8 @@ Phases, each printing one JSON line:
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
 3.35 TB/s or operations over the peak rate, whichever is larger; for
-flash_attention also the variant taken and each variant's time), the card's
+flash_attention also the variant taken and each variant's time; for the
+page copies the parent call pattern's time and the launches by variant), the card's
 name and power limit from nvidia-smi, and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises before that line (non-zero exit).  Without a
 CUDA card, or without the rest of the repository beside it, it exits
@@ -111,6 +120,25 @@ SOURCES = {
     "page_scatter": "src/repro_torch/csrc/page_gather.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
+# the engine's page copies at their call shapes (bf16, page 16, both pools):
+# layers, KVH, D, pool pages, and what is copied — an install of `tokens`
+# prefilled positions (zeros past them in the last page), a copy-on-write
+# of one page, or a copy-on-write's gathers alone
+COPY_CASES = {
+    "smollm_install": dict(layers=30, kvh=3, d=64, pages=512, kind="install", tokens=20),
+    "smollm_cow": dict(layers=30, kvh=3, d=64, pages=512, kind="cow"),
+    "smollm_cow_gather": dict(layers=30, kvh=3, d=64, pages=512, kind="gather"),
+    "qwen2_install_4095": dict(layers=28, kvh=2, d=128, pages=1408, kind="install",
+                               tokens=4095),
+    "qwen2_cow": dict(layers=28, kvh=2, d=128, pages=1408, kind="cow"),
+}
+# the kernels line's page-copy numbers: the serve path's call of each
+COPY_MAIN_CASE = {"page_gather": "smollm_cow_gather", "page_scatter": "smollm_install"}
+# page-copy launches allowed on each path: one per pool for each install
+# and copy-on-write (serve: 17 prefills + a prefix + a copy-on-write;
+# long prompt: 5 prefills, one fully shared, + a prefix + a copy-on-write)
+LAUNCH_CAPS = {"serve": {"page_scatter": 38, "page_gather": 2},
+               "long_prompt": {"page_scatter": 12, "page_gather": 2}}
 # flash_attention cases: (B, H, real heads, KVH, Sq, Sk, D, causal, window)
 FLASH_CASES = {
     "smollm_prefill": (1, 16, 9, 3, 32, 32, 64, True, None),
@@ -170,19 +198,21 @@ def measure(torch, flush, kernel, plain, library, others=None) -> dict:
     """Kernel, plain-version and library-call times, in turns (kernel,
     others, plain, library, library, plain, others, kernel); each is the
     mean of its two medians.  ``others`` maps a key to another call timed
-    beside the kernel (another variant of it).  ``host_ms`` is the kernel
-    wrapper's own host time per call."""
+    beside the kernel (another variant of it, or the parent's call
+    pattern).  ``host_ms`` is the kernel wrapper's own host time per call,
+    ``<other>_host_ms`` that of each other call."""
     order = [("ms", kernel), *(others or {}).items(), ("plain_ms", plain),
              ("library_ms", library)]
     runs = {k: [] for k, _ in order}
-    host = []
+    host = {k: [] for k, _ in order}
     for key, fn in order + order[::-1]:
         dev, h = time_ms(torch, fn, flush)
         runs[key].append(dev)
-        if key == "ms":
-            host.append(h)
+        host[key].append(h)
     out = {k: sum(v) / len(v) for k, v in runs.items()}
-    out["host_ms"] = sum(host) / len(host)
+    out["host_ms"] = sum(host["ms"]) / 2
+    for key in (others or {}):
+        out[key.replace("_ms", "_host_ms")] = sum(host[key]) / 2
     return out
 
 
@@ -326,13 +356,158 @@ def phase_kernels(torch, flush):
             row = dict(case=case, name=name, pages=n, max_abs_err=0.0, **times,
                        bound_ms=bnd, bound_by=by)
             report["copies"].append(row)
-            if case == "serve":
-                serve[name] = row
+    report["engine_copies"] = engine_copy_cases(torch, flush)
+    for name, case in COPY_MAIN_CASE.items():
+        serve[name] = next(r for r in report["engine_copies"] if r["case"] == case)
     report["flash"] = flash_cases(torch, rng, flush)
     serve["flash_attention"] = next(r for r in report["flash"]
                                     if r["case"] == "qwen2_4096" and r["dtype"] == "bfloat16")
     emit({"phase": "kernels", **report})
     return serve
+
+
+def engine_copy_cases(torch, flush):
+    """The engine's installs and copies-on-write at their call shapes, both
+    pools (``COPY_CASES``): the layered kernels as the engine calls them
+    (one launch per pool and copy), the parent's call pattern on this build
+    (a zero-padded staging copy and one launch per layer, pool and copy),
+    the plain versions and a library yardstick (``index_copy_`` /
+    ``index_select`` over the layer axis, the install's source padded
+    beforehand, the pad not timed), in turns.  Both kernel variants and
+    the parent pattern are held bitwise to the plain version first."""
+    from repro_torch.kernels.page_gather import kernel as CK
+    from repro_torch.kernels.page_gather.ops import pool_rows, token_rows
+    from repro_torch.kernels.page_gather.ref import page_gather_ref, page_scatter_ref
+
+    rows = []
+    ps, es = 16, 2
+    for case, c in COPY_CASES.items():
+        L, kvh, d, P = c["layers"], c["kvh"], c["d"], c["pages"]
+        E = ps * kvh * d
+        g = torch.Generator(device="cuda").manual_seed(0)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+        pools = [randn(L, P, ps, kvh, d) for _ in range(2)]
+        if c["kind"] == "install":
+            S = c["tokens"]
+            n = -(-S // ps)
+            # the prefill cache [L, 1, bucket + 8, KVH, D]; positions 0..S
+            caches = [randn(L, 1, -(-S // 32) * 32 + 8, kvh, d) for _ in range(2)]
+            srcs = [token_rows(x[:, 0, :S]) for x in caches]
+            ids = torch.randperm(P, generator=g, device="cuda")[:n].to(torch.int32)
+            padded = [torch.zeros((L, n * ps, kvh, d), dtype=torch.bfloat16, device="cuda")
+                      for _ in range(2)]
+            for pad, x in zip(padded, caches):
+                pad[:, :S] = x[:, 0, :S]
+            padded = [pad.view(L, n, E) for pad in padded]
+            ids_l = ids.long()
+
+            def kernel(pools, variant=None):
+                for pool, src in zip(pools, srcs):
+                    CK.page_scatter(pool_rows(pool), ids, src, variant=variant)
+
+            def parent(pools):           # _install_pages before the layer axis
+                for pool, x in zip(pools, caches):
+                    staged = torch.zeros((L, n * ps, kvh, d), dtype=pool.dtype, device="cuda")
+                    staged[:, :S] = x[:, 0, :S]
+                    staged = staged.view(L, n, -1)
+                    for layer in range(L):
+                        CK.page_scatter(pool[layer].view(P, -1), ids, staged[layer])
+
+            def plain(pools):
+                for pool, src in zip(pools, srcs):
+                    page_scatter_ref(pool_rows(pool), ids, src)
+
+            def library(pools):
+                for pool, pad in zip(pools, padded):
+                    pool_rows(pool).index_copy_(1, ids_l, pad)
+
+            nbytes = 2 * (L * S * kvh * d * es + L * n * E * es) + 4 * n
+            launches = {"page_scatter": 2}
+            parent_launches = {"page_scatter": 2 * L}
+        else:
+            n, S = 1, None
+            ids = torch.tensor([3, 11], dtype=torch.int32, device="cuda")
+            src_ids, dst_ids = ids[:1], ids[1:]
+            src_l, dst_l = src_ids.long(), dst_ids.long()
+            gather_only = c["kind"] == "gather"
+
+            def kernel(pools, variant=None):
+                for pool in pools:
+                    rows_ = pool_rows(pool)
+                    got = CK.page_gather(rows_, src_ids, variant=variant)
+                    if not gather_only:
+                        CK.page_scatter(rows_, dst_ids, got, variant=variant)
+                return got
+
+            def parent(pools):           # _ensure_private before the layer axis
+                for pool in pools:
+                    for layer in pool:
+                        lr = layer.view(P, -1)
+                        got = CK.page_gather(lr, src_ids)
+                        if not gather_only:
+                            CK.page_scatter(lr, dst_ids, got)
+
+            def plain(pools):
+                for pool in pools:
+                    rows_ = pool_rows(pool)
+                    got = page_gather_ref(rows_, src_ids)
+                    if not gather_only:
+                        page_scatter_ref(rows_, dst_ids, got)
+                return got
+
+            def library(pools):
+                for pool in pools:
+                    rows_ = pool_rows(pool)
+                    got = rows_.index_select(1, src_l)
+                    if not gather_only:
+                        rows_.index_copy_(1, dst_l, got)
+
+            nbytes = 2 * 2 * L * E * es + 4 * (1 if gather_only else 2)
+            launches = ({"page_gather": 2} if gather_only else
+                        {"page_gather": 2, "page_scatter": 2})
+            parent_launches = {k: v * L for k, v in launches.items()}
+
+        # bitwise: both variants and the parent pattern against the plain version
+        want = [p.clone() for p in pools]
+        want_out = plain(want)
+        for var in (*CK.VARIANTS, "parent"):
+            got = [p.clone() for p in pools]
+            before = {k: dict(v) for k, v in CK.copy_variant_counts.items()}
+            out = parent(got) if var == "parent" else kernel(got, var)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"page copies {case} {var}: pools not bitwise equal to the plain version")
+            if want_out is not None and var != "parent":
+                check(torch.equal(out, want_out),
+                      f"page_gather {case} {var}: not bitwise equal to the plain version")
+            if var != "parent":
+                check(all(CK.copy_variant_counts[k][var] - before[k][var] == launches[k]
+                          for k in launches), f"page copies {case}: {var} launches not counted")
+            del got
+        del want
+        before = {k: dict(v) for k, v in CK.copy_variant_counts.items()}
+        kernel(pools)                    # the variant the engine's call takes
+        taken = {k: {v: CK.copy_variant_counts[k][v] - before[k][v] for v in CK.VARIANTS}
+                 for k in launches}
+        variant = "bulk" if all(t["bulk"] == launches[k] for k, t in taken.items()) else taken
+        times = measure(torch, flush, lambda: kernel(pools), lambda: plain(pools),
+                        lambda: library(pools),
+                        {"generic_ms": lambda: kernel(pools, "generic"),
+                         "parent_ms": lambda: parent(pools)})
+        bnd, by = bound_ms(nbytes, 0.0, "bfloat16")
+        rows.append(dict(case=case, layers=L, pools=2, pages=n, tokens=S,
+                         page_bytes=E * es, kind=c["kind"], launches=launches,
+                         parent_launches=parent_launches, variant=variant,
+                         variant_ms={"bulk": times["ms"], "generic": times.pop("generic_ms")},
+                         max_abs_err=0.0, **times, bound_ms=bnd, bound_by=by))
+        del pools
+        if c["kind"] == "install":
+            del caches, srcs, padded
+        torch.cuda.empty_cache()
+    return rows
 
 
 def visible_pairs(B, sq, sk, causal, window):
@@ -429,6 +604,56 @@ def flash_cases(torch, rng, flush):
 
 
 # ------------------------------------------------------------------ phase 3
+
+
+class InstallTimer:
+    """Host ms of each install (``_install_pages`` with S > 0) of an engine
+    module while active: the host's own cost of the call, not synchronised."""
+
+    def __init__(self, engine_module):
+        self.module, self.ms = engine_module, []
+
+    def __enter__(self):
+        self.original = self.module._install_pages
+        self.module._install_pages = self._timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module._install_pages = self.original
+
+    def _timed(self, cache, k, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.original(cache, k, *args, **kw)
+        if k.shape[1]:
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def summary(self) -> dict:
+        ms = sorted(self.ms)
+        return {"calls": len(ms), "mean_ms": sum(ms) / max(len(ms), 1),
+                "median_ms": ms[len(ms) // 2] if ms else None, "max_ms": ms[-1] if ms else None}
+
+
+def copy_variants_now():
+    from repro_torch.kernels.page_gather import kernel as CK
+
+    return {k: dict(v) for k, v in CK.copy_variant_counts.items()}
+
+
+def check_copy_launches(path, launches, variants, eng) -> dict:
+    """Page-copy launches of a path within one per pool for each install
+    (a prefill or a prefix) and copy-on-write, and within ``LAUNCH_CAPS``;
+    every one on the bulk variant.  Returns the bounds held."""
+    installs = eng.stats["prefills"] + len(eng._prefixes)
+    cows = eng.stats["cow_copies"]
+    caps = {"page_scatter": min(LAUNCH_CAPS[path]["page_scatter"], 2 * (installs + cows)),
+            "page_gather": min(LAUNCH_CAPS[path]["page_gather"], 2 * cows)}
+    for name, cap in caps.items():
+        check(launches[name] <= cap,
+              f"{path}: {launches[name]} {name} launches, at most {cap} expected")
+        check(variants[name] == {"bulk": launches[name], "generic": 0},
+              f"{path}: {name} launches by variant {variants[name]}, all should be bulk")
+    return caps
 
 
 def make_requests(cfg, Request, n, seed, prefix):
@@ -665,11 +890,14 @@ def profile_long_decode(torch, cfg, params, steps: int = 8):
 def phase_long_prompt(torch, M, K):
     """Long prompts on full-width qwen2-1.5b: the prefill path through
     flash_attention, then decode through paged_attention.  Returns (launch
-    counts, flash_attention's launches by variant)."""
+    counts, flash_attention's launches by variant, the page copies' launches
+    by variant)."""
     import numpy as np
 
     from repro_torch.configs.registry import get_config
+    import repro_torch.serve.engine as engine_module
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.page_gather import kernel as CK
     from repro_torch.models.transformer import cast_params
     from repro_torch.serve.engine import EngineConfig, Request
 
@@ -705,9 +933,12 @@ def phase_long_prompt(torch, M, K):
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     FK.reset_variant_counts()
-    eng, seconds = serve_timed(torch, cfg, params, ecfg, reqs, prefix=reqs[-1].prompt[:-1])
+    CK.reset_copy_variant_counts()
+    with InstallTimer(engine_module) as installs:
+        eng, seconds = serve_timed(torch, cfg, params, ecfg, reqs, prefix=reqs[-1].prompt[:-1])
     launches = dict(K.launch_counts)
     variants = dict(FK.variant_counts)
+    copy_variants = copy_variants_now()
     peak = torch.cuda.max_memory_allocated()        # bf16 weights, pools, activations
     # every generated token comes out of a decode step: a prefill covers
     # prompt[:-1] and the last prompt token is the first decode input
@@ -725,7 +956,9 @@ def phase_long_prompt(torch, M, K):
           "steps": eng.stats["steps"], "peak_pages_used": eng.stats["peak_pages_used"],
           "prefix_hits": eng.stats["prefix_hits"], "cow_copies": eng.stats["cow_copies"],
           "peak_memory_bytes": peak, "launches": launches,
-          "flash_attention_variants": variants})
+          "flash_attention_variants": variants, "copy_variants": copy_variants,
+          "copy_launch_bounds": check_copy_launches("long_prompt", launches, copy_variants, eng),
+          "install_host_ms": installs.summary()})
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the long-prompt path")
     check(variants == {"hopper": launches["flash_attention"], "generic": 0},
@@ -754,7 +987,7 @@ def phase_long_prompt(torch, M, K):
           "fp32_prompt_tokens": len(req32.prompt), "fp32_tokens_equal": len(ref32)})
     del eng, logits, params
     torch.cuda.empty_cache()
-    return launches, variants
+    return launches, variants, copy_variants
 
 
 # ------------------------------------------------------------------ main
@@ -771,8 +1004,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.models as M
+    import repro_torch.serve.engine as engine_module
     from repro_torch import kernels as K
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.page_gather import kernel as CK
 
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 means fp32 (check phase)
     torch.backends.cudnn.allow_tf32 = False
@@ -782,7 +1017,8 @@ def main() -> int:
     reports = K.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {n: [ln.strip() for ln in r.splitlines()
-                        if "registers" in ln or "spill" in ln] for n, r in reports.items()}})
+                        if "registers" in ln or "spill" in ln] for n, r in reports.items()},
+          "page_copy_bulk_shape": CK.bulk_shape()})
 
     # 2. kernels against their plain versions
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -796,14 +1032,20 @@ def main() -> int:
     init_s = time.perf_counter() - t0
     serve(torch, cfg, params, 2, seed=7)               # warm-up: cuBLAS, allocator
     K.reset_launch_counts()
-    eng, reqs, seconds = serve(torch, cfg, params, 16, seed=0)
+    CK.reset_copy_variant_counts()
+    with InstallTimer(engine_module) as installs:
+        eng, reqs, seconds = serve(torch, cfg, params, 16, seed=0)
     launches = dict(K.launch_counts)
+    copy_variants = copy_variants_now()
     tokens = sum(len(r.generated) for r in eng.finished)
     emit({"phase": "serve", "arch": cfg.name, "dtype": cfg.compute_dtype,
           "init_params_s": init_s, "requests_served": len(eng.finished), "tokens": tokens,
           "seconds": seconds, "tok_per_s": tokens / seconds, "steps": eng.stats["steps"],
           "prefills": eng.stats["prefills"], "cow_copies": eng.stats["cow_copies"],
-          "prefix_hits": eng.stats["prefix_hits"], "launches": launches})
+          "prefix_hits": eng.stats["prefix_hits"], "launches": launches,
+          "copy_variants": copy_variants,
+          "copy_launch_bounds": check_copy_launches("serve", launches, copy_variants, eng),
+          "install_host_ms": installs.summary()})
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     check(eng.stats["cow_copies"] > 0 and eng.stats["prefix_hits"] > 0,
@@ -837,7 +1079,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. long prompts on full-width qwen2-1.5b (the prefill path)
-    long_launches, flash_variants = phase_long_prompt(torch, M, K)
+    long_launches, flash_variants, long_copy_variants = phase_long_prompt(torch, M, K)
 
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
@@ -858,6 +1100,13 @@ def main() -> int:
             row["variant"] = s["variant"]
             row["variants"] = {v: {"ms": ms, "long_prompt_launches": flash_variants[v]}
                                for v, ms in s["variant_ms"].items()}
+        if name in COPY_MAIN_CASE:
+            # the serve path's call (both pools, every layer: two launches),
+            # the parent's call pattern for it, and the launches by variant
+            row["case"] = s["case"]
+            row["parent_ms"] = s["parent_ms"]
+            row["copy_variants"] = {"serve": copy_variants[name],
+                                    "long_prompt": long_copy_variants[name]}
         rows.append(row)
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,75 +1,219 @@
-// Whole-page gather and scatter for Hopper (sm_90a): the on-device
+// Layered whole-page gather and scatter for Hopper (sm_90a): the on-device
 // UFFDIO_COPY analogue.
 //
 // Replaces the Pallas TPU kernels `page_gather` (`_copy_kernel`) and
 // `page_scatter` (`_copy_kernel_scatter`) in
-// src/repro/kernels/page_gather/kernel.py:
-//   gather:  out[i]       = pool[ids[i]]
-//   scatter: pool[ids[i]] = pages[i]        (in place; ids unique)
-// over a pool viewed as [P, row_bytes] of any element type.
+// src/repro/kernels/page_gather/kernel.py, and with a layer axis the
+// reference's `pool.at[:, ids].set(...)` over every layer of a pool
+// (src/repro/serve/engine.py `_install_pages`, the copy-on-write):
+//   gather:  out[l, i]       = pool[l, ids[i]]
+//   scatter: pool[l, ids[i]] = pages[l, i]          (in place; ids unique)
+// over pools viewed as [L, P, row_bytes] of any element type: rows
+// contiguous, any layer stride (the Pallas contract is L = 1).  A scatter
+// reads each layer's source as one run of `src_valid` bytes (the prefilled
+// tokens, where they lie) and writes the rest of the n pages as zeros: the
+// reference's jnp.pad before the install, with no staging copy.  A page id
+// outside [0, P) is skipped: the kernel never touches memory outside the
+// pool.
 //
-// What bounds it on an H100: bytes (each page read once and written once,
-// no arithmetic).  What the design does about it: one block per page, each
-// thread moving 16-byte vectors (int4) so a warp moves 512 contiguous
-// bytes per instruction; a byte-wise tail covers a row whose size is not a
-// multiple of 16, and a row whose address is not 16-byte aligned is copied
-// byte-wise whole.  A page id outside [0, P) is skipped: the kernel never
-// touches memory outside the pool.
-// Visibility: a scatter runs on the caller's stream, so any later kernel on
+// What bounds it on an H100: bytes (each byte read once and written once,
+// no arithmetic).  What the design does about it:
+// * one launch moves every layer of a pool, so an install or a
+//   copy-on-write costs one launch per pool, not one per layer and pool;
+// * `bulk` variant: a grid sized to the card (4 CTAs per SM), each CTA
+//   walking (layer, page, 8 KB chunk) items.  One thread keeps a ring of 4
+//   shared-memory stages in flight with 1-D TMA bulk copies: global ->
+//   shared completing on an mbarrier, shared -> global in bulk groups,
+//   a stage reused once its store has read it.  No register of the SM
+//   carries the data.  The zero tail is stored from a stage the CTA's
+//   threads zeroed once.  Needs 16-byte aligned rows, layer strides,
+//   bases and source runs;
+// * `generic` variant, for everything else (rows of 7 or 1000 elements,
+//   pools off 16 bytes): the same layered grid, a block copying a row in
+//   16-byte vectors where it is aligned and byte by byte where not.
+// A copy of 1-2 pages a layer stays at launch and DRAM latency whatever
+// the body does; what moves it is the layered launch, which pays that
+// latency once per pool and not once per layer.
+// Visibility: a copy runs on the caller's stream, so any later kernel on
 // that stream sees whole pages only; other streams must order themselves
 // after it with an event.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kStages = 4;
+constexpr int kStageBytes = 8192;
+constexpr int kBulkThreads = 128;     // all zero the tail stage; one copies
+constexpr int kBulkCtasPerSm = 4;
+constexpr int kBulkSmem = (kStages + 1) * kStageBytes + kStages * 8;
+constexpr int kGenericThreads = 256;
+constexpr int kGenericCtasPerSm = 8;
 
-// src row i = src_ids ? src_ids[i] : i (same for dst); `bound` is the pool's
-// page count, checked on the indexed side.
-__global__ void __launch_bounds__(kThreads) copy_pages_kernel(
-    const char* __restrict__ src, const int* __restrict__ src_ids,
-    char* __restrict__ dst, const int* __restrict__ dst_ids, int64_t row_bytes,
-    int bound) {
-  const int i = blockIdx.x;
-  const int s_row = src_ids ? src_ids[i] : i;
-  const int d_row = dst_ids ? dst_ids[i] : i;
-  if ((src_ids && (s_row < 0 || s_row >= bound)) ||
-      (dst_ids && (d_row < 0 || d_row >= bound)))
-    return;
-  const char* s = src + (int64_t)s_row * row_bytes;
-  char* d = dst + (int64_t)d_row * row_bytes;
-  int64_t done = 0;
-  if (((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(d)) & 15) == 0) {
-    const int64_t nvec = row_bytes / 16;
-    const int4* s4 = reinterpret_cast<const int4*>(s);
-    int4* d4 = reinterpret_cast<int4*>(d);
-    for (int64_t j = threadIdx.x; j < nvec; j += kThreads) d4[j] = s4[j];
-    done = nvec * 16;
+struct Copy {
+  const char* src;
+  const int* src_ids;   // source row i is src_ids[i], or i without ids
+  int64_t src_layer;    // bytes between layers
+  char* dst;
+  const int* dst_ids;
+  int64_t dst_layer;
+  int64_t row_bytes;
+  int64_t src_valid;    // bytes of each layer's source run; zeros past it
+  int64_t chunk;        // bytes of one item (the whole row in `generic`)
+  int64_t chunks;       // items per row
+  int64_t items;        // layers * n * chunks
+  int n, bound;         // bound: the pool's page count, on the indexed side
+};
+
+struct Item {
+  const char* src;
+  char* dst;
+  int64_t size;    // bytes of this chunk
+  int64_t valid;   // of them read from src; the rest are zeros
+  bool live;       // false: a page id out of range, skipped
+};
+
+__device__ __forceinline__ int64_t clamp64(int64_t x, int64_t lo, int64_t hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+__device__ __forceinline__ Item locate(const Copy& c, int64_t j) {
+  const int64_t row = j / c.chunks;
+  const int64_t off = (j - row * c.chunks) * c.chunk;
+  const int i = static_cast<int>(row % c.n);
+  const int64_t l = row / c.n;
+  const int s = c.src_ids ? __ldg(c.src_ids + i) : i;
+  const int d = c.dst_ids ? __ldg(c.dst_ids + i) : i;
+  Item it;
+  it.live = !((c.src_ids && (s < 0 || s >= c.bound)) || (c.dst_ids && (d < 0 || d >= c.bound)));
+  it.src = c.src + l * c.src_layer + static_cast<int64_t>(s) * c.row_bytes + off;
+  it.dst = c.dst + l * c.dst_layer + static_cast<int64_t>(d) * c.row_bytes + off;
+  it.size = clamp64(c.row_bytes - off, 0, c.chunk);
+  it.valid = clamp64(c.src_valid - static_cast<int64_t>(i) * c.row_bytes - off, 0, it.size);
+  return it;
+}
+
+__global__ void __launch_bounds__(kBulkThreads) bulk_copy_kernel(const Copy c) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* zeros = smem + kStages * kStageBytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(zeros + kStageBytes);
+  if (c.src_valid < c.n * c.row_bytes) {      // a zero tail: zero one stage for it
+    for (int j = threadIdx.x; j < kStageBytes / 16; j += kBulkThreads)
+      reinterpret_cast<int4*>(zeros)[j] = make_int4(0, 0, 0, 0);
+    sm90::fence_proxy_async_shared();
+    __syncthreads();
   }
-  for (int64_t j = done + threadIdx.x; j < row_bytes; j += kThreads) d[j] = s[j];
+  if (threadIdx.x != 0) return;
+
+  // this CTA's items: first, first + step, ... (the grid is <= items)
+  const int64_t first = blockIdx.x, step = gridDim.x;
+  const int64_t mine = (c.items - first + step - 1) / step;
+  for (int s = 0; s < kStages; ++s) sm90::mbar_init(&bar[s], 1);
+  sm90::fence_barrier_init();
+
+  // item k into stage k % kStages; a skipped or all-zero item arrives
+  // with no bytes, so every stage completes one phase per item
+  auto load = [&](int64_t k) {
+    const int s = static_cast<int>(k % kStages);
+    const Item it = locate(c, first + k * step);
+    const uint32_t bytes = it.live ? static_cast<uint32_t>(it.valid) : 0u;
+    sm90::mbar_expect_tx(&bar[s], bytes);
+    if (bytes) sm90::bulk_load(smem + s * kStageBytes, it.src, bytes, &bar[s]);
+  };
+  for (int64_t k = 0; k < mine && k < kStages; ++k) load(k);
+  for (int64_t k = 0; k < mine; ++k) {
+    const int s = static_cast<int>(k % kStages);
+    const Item it = locate(c, first + k * step);
+    sm90::mbar_wait(&bar[s], static_cast<uint32_t>((k / kStages) & 1));
+    if (it.live) {
+      if (it.valid) sm90::bulk_store(it.dst, smem + s * kStageBytes, static_cast<uint32_t>(it.valid));
+      if (it.valid < it.size)
+        sm90::bulk_store(it.dst + it.valid, zeros, static_cast<uint32_t>(it.size - it.valid));
+    }
+    sm90::bulk_commit();
+    // refill the stage of item k - 1 once its stores have read it; item
+    // k's stores stay in flight meanwhile
+    if (k >= 1 && k - 1 + kStages < mine) {
+      sm90::bulk_wait_read<1>();
+      load(k - 1 + kStages);
+    }
+  }
+  sm90::bulk_wait<0>();
+}
+
+__global__ void __launch_bounds__(kGenericThreads) generic_copy_kernel(const Copy c) {
+  for (int64_t j = blockIdx.x; j < c.items; j += gridDim.x) {
+    const Item it = locate(c, j);
+    if (!it.live) continue;
+    const char* s = it.src;
+    char* d = it.dst;
+    int64_t done = 0;
+    if (((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(d)) & 15) == 0) {
+      const int64_t nvec = it.size / 16;
+      for (int64_t v = threadIdx.x; v < nvec; v += kGenericThreads) {
+        const int64_t o = v * 16;
+        if (o + 16 <= it.valid) {
+          reinterpret_cast<int4*>(d)[v] = reinterpret_cast<const int4*>(s)[v];
+        } else if (o >= it.valid) {
+          reinterpret_cast<int4*>(d)[v] = make_int4(0, 0, 0, 0);
+        } else {
+          for (int b = 0; b < 16; ++b) d[o + b] = o + b < it.valid ? s[o + b] : 0;
+        }
+      }
+      done = nvec * 16;
+    }
+    for (int64_t b = done + threadIdx.x; b < it.size; b += kGenericThreads)
+      d[b] = b < it.valid ? s[b] : 0;
+  }
 }
 
 }  // namespace
 
-// Both return cudaGetLastError() after the launch (0 = launched).
-extern "C" int repro_page_gather(const void* pool, const int* ids, void* out,
-                                 int n, long long row_bytes, int num_pages,
-                                 void* stream) {
-  if (n <= 0) return 0;
-  copy_pages_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(pool), ids, static_cast<char*>(out), nullptr,
-      row_bytes, num_pages);
+// Copy `layers` x `n` rows of `row_bytes` from src to dst (see the note at
+// the top; gather: src_ids set, src_valid = n * row_bytes; scatter: dst_ids
+// set).  bulk: 1 for the TMA bulk variant, whose every address and size
+// the caller has checked to be 16-byte aligned; 0 for the generic one.
+// sms: the card's SM count, which sizes the grid.  Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int repro_page_copy(const void* src, const int* src_ids, long long src_layer,
+                               void* dst, const int* dst_ids, long long dst_layer, int layers,
+                               int n, long long row_bytes, long long src_valid, int num_pages,
+                               int bulk, int sms, void* stream) {
+  if (layers <= 0 || n <= 0 || row_bytes <= 0) return 0;
+  Copy c;
+  c.src = static_cast<const char*>(src);
+  c.src_ids = src_ids;
+  c.src_layer = src_layer;
+  c.dst = static_cast<char*>(dst);
+  c.dst_ids = dst_ids;
+  c.dst_layer = dst_layer;
+  c.row_bytes = row_bytes;
+  c.src_valid = src_valid;
+  c.chunk = bulk ? (row_bytes < kStageBytes ? row_bytes : kStageBytes) : row_bytes;
+  c.chunks = (row_bytes + c.chunk - 1) / c.chunk;
+  c.items = static_cast<int64_t>(layers) * n * c.chunks;
+  c.n = n;
+  c.bound = num_pages;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) *
+                      (bulk ? kBulkCtasPerSm : kGenericCtasPerSm);
+  const unsigned grid = static_cast<unsigned>(c.items < cap ? c.items : cap);
+  if (bulk)
+    bulk_copy_kernel<<<grid, kBulkThreads, kBulkSmem, st>>>(c);
+  else
+    generic_copy_kernel<<<grid, kGenericThreads, 0, st>>>(c);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_page_scatter(void* pool, const int* ids, const void* pages,
-                                  int n, long long row_bytes, int num_pages,
-                                  void* stream) {
-  if (n <= 0) return 0;
-  copy_pages_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(pages), nullptr, static_cast<char*>(pool), ids,
-      row_bytes, num_pages);
-  return static_cast<int>(cudaGetLastError());
+// The bulk variant's launch shape: stages, bytes a stage, threads and CTAs
+// per SM, dynamic shared memory a CTA (ptxas reports static memory only).
+extern "C" void repro_page_copy_bulk_shape(int* out) {
+  out[0] = kStages;
+  out[1] = kStageBytes;
+  out[2] = kBulkThreads;
+  out[3] = kBulkCtasPerSm;
+  out[4] = kBulkSmem;
 }

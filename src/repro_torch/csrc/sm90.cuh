@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's CUDA kernels: mbarriers,
-// TMA tile loads, wgmma descriptors and products, register reallocation,
-// and the host-side encoding of a TMA tensor map.  Plain PTX, no CUTLASS.
+// TMA tile loads, 1-D bulk copies, wgmma descriptors and products, register
+// reallocation, and the host-side encoding of a TMA tensor map.  Plain PTX,
+// no CUTLASS.
 // A source that includes this header is rebuilt when it changes
 // (kernels/__init__.py hashes every local header a source includes).
 
@@ -77,6 +78,51 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ------------------------------------------------------- 1-D bulk copies
+// No tensor map: a run of bytes, 16-byte aligned at both ends, a multiple
+// of 16 long.
+
+// `bytes` from global into shared memory; completion is counted in bytes
+// on `bar` (arm it with mbar_expect_tx first).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` from shared into global memory, in the thread's open bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of the thread's bulk groups are incomplete (their
+// writes to global memory performed).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's ordinary writes to shared memory before the bulk
+// copies (the async proxy) started after it.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ----------------------------------------------------------------- wgmma

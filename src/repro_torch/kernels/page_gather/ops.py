@@ -2,7 +2,8 @@
 
 ``"auto"`` launches the CUDA kernel for a CUDA pool and runs the plain
 PyTorch version for a CPU pool; ``"cuda"`` and ``"ref"`` force one.  There
-is no fallback.  ``page_scatter`` updates ``pool`` in place and returns it.
+is no fallback.  Pools are ``[P, E]`` or ``[L, P, E]`` (every layer in one
+call); ``page_scatter`` updates ``pool`` in place and returns it.
 """
 
 from __future__ import annotations
@@ -29,3 +30,16 @@ def page_scatter(pool, page_ids, pages, impl="auto"):
     if _resolve(impl, pool) == "cuda":
         return _scatter(pool, page_ids, pages)
     return page_scatter_ref(pool, page_ids, pages)
+
+
+def pool_rows(pool):
+    """A ``[L, P, ...]`` page pool as the ``[L, P, E]`` the copies take (a view)."""
+    return pool.view(pool.shape[0], pool.shape[1], -1)
+
+
+def token_rows(kv):
+    """``[L, S, ...]`` KV as a layered scatter's ``[L, S, T]`` source: a view
+    where each layer's tokens already lie contiguous (the prefill cache's K
+    at any layer stride), else a contiguous copy."""
+    rows = kv.reshape(kv.shape[0], kv.shape[1], -1)
+    return rows if kv.shape[0] == 0 or rows[0].is_contiguous() else rows.contiguous()

@@ -7,8 +7,9 @@ Layout (per decoder layer-stack):
 
 ``page_size`` (tokens per page) is the paper's §3.6 knob.  The attention
 read path goes through ``kernels/paged_attention`` (block-table indirection
-in-kernel); ``lease_kv`` of one layer gathers through ``kernels/page_gather``
-(UFFDIO_COPY analogue).  A contiguous, max-length pre-allocated cache
+in-kernel); installs, copy-on-write copies and ``lease_kv`` go through
+``kernels/page_gather`` (UFFDIO_COPY analogue), one launch per pool for
+every layer.  A contiguous, max-length pre-allocated cache
 (:class:`ContiguousKVCache`) is the mmap baseline this design is compared
 against.
 
@@ -29,7 +30,7 @@ import torch
 
 from .. import resolve_device, torch_dtype
 from ..core.pattern import AccessPatternClassifier, Phase
-from ..kernels.page_gather.ops import page_gather
+from ..kernels.page_gather.ops import page_gather, page_scatter, pool_rows, token_rows
 from ..kernels.paged_attention.ops import paged_attention
 from .allocator import OutOfPages, PageAllocator
 
@@ -38,7 +39,7 @@ class KVBlockLease:
     """Zero-copy K/V block views for one sequence (DESIGN.md §13).
 
     ``k``/``v`` are device tensors gathered straight from the pool through
-    the sequence's block table (``page_gather`` for one layer).  While the
+    the sequence's block table (one ``page_gather`` per pool).  While the
     lease is live the sequence is pinned: ``release()`` (sequence free) and
     window-prefix eviction are refused/deferred.
     """
@@ -139,22 +140,17 @@ class PagedKVCache:
 
     def add_sequence(self, seq_id: int, k: torch.Tensor, v: torch.Tensor) -> None:
         """Install a prefilled sequence.  k/v: [L, S, KVH, D]."""
-        L, S = k.shape[0], k.shape[1]
-        ps = self.cfg.page_size
-        n_pages = -(-S // ps)
+        S = k.shape[1]
+        n_pages = -(-S // self.cfg.page_size)
         dt = self.k_pool.dtype
-        kp = torch.zeros((L, n_pages * ps) + tuple(k.shape[2:]), dtype=dt,
-                         device=self.device)
-        vp = torch.zeros_like(kp)
-        kp[:, :S] = k.to(self.device, dt)
-        vp[:, :S] = v.to(self.device, dt)
-        kp = kp.view(L, n_pages, ps, *k.shape[2:])
-        vp = vp.view(L, n_pages, ps, *v.shape[2:])
+        kr = token_rows(k.to(self.device, dt))
+        vr = token_rows(v.to(self.device, dt))
         with self._locked_meta():
             pages = self.allocator.alloc(seq_id, n_pages)
-            idx = self._ids(pages).long()
-            self.k_pool[:, idx] = kp
-            self.v_pool[:, idx] = vp
+            idx = self._ids(pages)
+            # one layered scatter per pool; the last page's tail is zeros
+            page_scatter(pool_rows(self.k_pool), idx, kr)
+            page_scatter(pool_rows(self.v_pool), idx, vr)
             self.seq_len[seq_id] = S
 
     def share_prefix(self, src_seq: int, dst_seq: int, tokens: int) -> int:
@@ -184,9 +180,10 @@ class PagedKVCache:
         Caller holds the metadata lock."""
         res = self.allocator.make_private(seq_id, page_idx)
         if res is not None:
-            old, new = res
-            self.k_pool[:, new] = self.k_pool[:, old]
-            self.v_pool[:, new] = self.v_pool[:, old]
+            ids = self._ids(list(res))
+            for pool in (self.k_pool, self.v_pool):
+                rows = pool_rows(pool)
+                page_scatter(rows, ids[1:], page_gather(rows, ids[:1]))
         return self.allocator.pages_of(seq_id)[page_idx]
 
     def append_token(self, seq_id: int, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -253,11 +250,11 @@ class PagedKVCache:
                  layer: Optional[int] = None) -> KVBlockLease:
         """Lease the sequence's K/V blocks as gathered device tensors.
 
-        For one layer, one ``page_gather`` launch per pool over the layer's
-        pool viewed as [P, page_size*KVH*D]; result [n, page_size, KVH, D].
-        For ``layer=None`` a plain gather spans the layer axis
-        ([L, n, page_size, KVH, D]), as in the JAX package.  The sequence is
-        pinned against free/window-eviction until release.
+        One ``page_gather`` launch per pool: for one layer over the layer's
+        pool viewed as [P, page_size*KVH*D], result [n, page_size, KVH, D];
+        for ``layer=None`` over every layer ([L, n, page_size, KVH, D]), as
+        in the JAX package.  The sequence is pinned against
+        free/window-eviction until release.
         """
         with self._locked_meta():
             pages = list(self.allocator.pages_of(seq_id))
@@ -265,8 +262,9 @@ class PagedKVCache:
             self._lease_count += 1
         idx = self._ids(pages)
         if layer is None:
-            k = self.k_pool.index_select(1, idx.long())
-            v = self.v_pool.index_select(1, idx.long())
+            shape = self.k_pool.shape[:1] + (len(pages),) + self.k_pool.shape[2:]
+            k = page_gather(pool_rows(self.k_pool), idx).view(shape)
+            v = page_gather(pool_rows(self.v_pool), idx).view(shape)
         else:
             shape = (len(pages),) + tuple(self.k_pool.shape[2:])
             P = self.cfg.num_pages

@@ -15,8 +15,10 @@ paper's application-hints thesis applied to serving (DESIGN.md §16):
                   reads the pool through the page table in the
                   ``paged_attention`` CUDA kernel, and a bucketed ``prefill``
                   whose KV lands in pool pages through the ``page_scatter``
-                  kernel.  Pools are updated in place (the JAX package
-                  rebuilt them functionally).
+                  kernel, one launch per pool for all of a segment's layers
+                  (a copy-on-write adds a ``page_gather`` per pool).  Pools
+                  are updated in place (the JAX package rebuilt them
+                  functionally).
 
 Port of ``repro/serve/engine.py``: the host-side scheduling is the same
 logic line for line; the device side is eager PyTorch on ``device``
@@ -48,7 +50,7 @@ from .. import resolve_device, torch_dtype
 from ..configs.base import ModelConfig
 from ..core.hints import deadline_headroom_s, fair_shares
 from ..interop import tree_map
-from ..kernels.page_gather.ops import page_gather, page_scatter
+from ..kernels.page_gather.ops import page_gather, page_scatter, pool_rows, token_rows
 from ..kvcache.allocator import OutOfPages, PageAllocator
 from ..models import transformer as T
 from ..models.blocks import block_cache_init
@@ -701,18 +703,10 @@ class ServeEngine:
                 return False
             res = self.allocator.make_private(rid, page_idx)
         if res is not None:
-            # device copy old -> new on every layer's pool, in place:
-            # page_scatter(pool, [new], page_gather(pool, [old]))
-            old, new = res
-            src = torch.tensor([old], dtype=torch.int32, device=self.device)
-            dst = torch.tensor([new], dtype=torch.int32, device=self.device)
+            ids = torch.tensor(res, dtype=torch.int32, device=self.device)
             for seg, c in zip(self.plan, self._caches):
-                if not seg.has_attention:
-                    continue
-                for pool in (c["k_pool"], c["v_pool"]):
-                    for layer in pool:
-                        rows = layer.view(layer.shape[0], -1)
-                        page_scatter(rows, dst, page_gather(rows, src))
+                if seg.has_attention:
+                    _copy_page(c, ids)
         self.stats["cow_copies"] = self.allocator.cow_copies
         return True
 
@@ -859,13 +853,13 @@ class ServeEngine:
 
 def _install_pages(cache, k, v, pages, page_size):
     """Scatter contiguous prefilled KV [L, S, KVH, D] into pool pages, in
-    place, with one ``page_scatter`` per layer and pool (each layer's pool
-    viewed as [P, page_size*KVH*D]; the last page is zero-padded, as the JAX
-    package pads it).  ``pages`` lists the physical pages receiving the S
+    place: one layered ``page_scatter`` per pool reads the KV where it lies
+    (any layer stride) and writes zeros past S in the last page, as the JAX
+    package pads it.  ``pages`` lists the physical pages receiving the S
     positions (S == 0 writes nothing — the whole span was prefix-shared).
     Returns ``cache``.
     """
-    L, S = k.shape[0], k.shape[1]
+    S = k.shape[1]
     if not S:
         return cache
     n_pages = -(-S // page_size)
@@ -873,12 +867,18 @@ def _install_pages(cache, k, v, pages, page_size):
                        device=cache["k_pool"].device)
     for name, src in (("k_pool", k), ("v_pool", v)):
         pool = cache[name]
-        staged = torch.zeros((L, n_pages * page_size) + tuple(src.shape[2:]),
-                             dtype=pool.dtype, device=pool.device)
-        staged[:, :S] = src
-        staged = staged.view(L, n_pages, -1)
-        for layer in range(L):
-            page_scatter(pool[layer].view(pool.shape[1], -1), idx, staged[layer])
+        page_scatter(pool_rows(pool), idx, token_rows(src.to(pool.dtype)))
+    return cache
+
+
+def _copy_page(cache, ids):
+    """Copy-on-write on the device: page ``ids[0]`` to page ``ids[1]`` in
+    every layer of both pools, in place (the reference's
+    ``pool.at[:, new].set(pool[:, old])``): one layered gather and one
+    layered scatter per pool.  Returns ``cache``."""
+    for name in ("k_pool", "v_pool"):
+        rows = pool_rows(cache[name])
+        page_scatter(rows, ids[1:], page_gather(rows, ids[:1]))
     return cache
 
 

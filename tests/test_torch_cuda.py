@@ -19,7 +19,9 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.page_gather import kernel as copy_kernel
 from repro_torch.kernels.page_gather import ops as gather_ops
+from repro_torch.kernels.page_gather.ref import page_gather_ref, page_scatter_ref
 from repro_torch.kernels.paged_attention import ops as attn_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -199,6 +201,137 @@ def test_page_copy_kernels_match_plain_bitwise(cuda, dtype, elems):
     assert torch.equal(out, pool.clone().index_copy_(0, ids.long(), pages))
 
 
+def randn(shape, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(TORCH_DTYPE[dtype])
+
+
+def page_ids(pages, n, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randperm(pages, generator=g, device=device)[:n].to(torch.int32)
+
+
+def run_copy(name, variant, *args):
+    """One layered copy forced to ``variant``; checks that it was counted."""
+    before = copy_kernel.copy_variant_counts[name][variant]
+    out = getattr(copy_kernel, name)(*args, variant=variant)
+    torch.cuda.synchronize()
+    n = args[1].shape[0]
+    assert copy_kernel.copy_variant_counts[name][variant] == before + (n > 0)
+    return out
+
+
+@pytest.mark.parametrize("variant", copy_kernel.VARIANTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layers", [1, 3, 30])
+@pytest.mark.parametrize("n", [0, 1, 13, 256])
+def test_layered_copy_kernels_match_plain_bitwise(cuda, variant, dtype, layers, n):
+    """smollm's 3072-element rows: one 8 KB chunk in bf16, two in fp32."""
+    pool = randn((layers, 300, 3072), dtype, cuda, seed=n + layers)
+    ids = page_ids(300, n, cuda, seed=n)
+    pages = randn((layers, n, 3072), dtype, cuda, seed=7)
+    got = run_copy("page_gather", variant, pool, ids)
+    assert got.shape == (layers, n, 3072) and torch.equal(got, page_gather_ref(pool, ids))
+    out = run_copy("page_scatter", variant, pool.clone(), ids, pages)
+    assert torch.equal(out, page_scatter_ref(pool.clone(), ids, pages))
+
+
+@pytest.mark.parametrize("variant", copy_kernel.VARIANTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layers,kvh,d,s", [(30, 3, 64, 1), (30, 3, 64, 20), (30, 3, 64, 32),
+                                            (28, 2, 128, 4095)])
+def test_layered_scatter_reads_the_prefill_cache_in_place(cuda, variant, dtype, layers,
+                                                          kvh, d, s):
+    """The engine's install: the prefill cache's K at positions a0..a0+s (a
+    strided view) into ceil(s / 16) pages, zeros past s in the last page."""
+    ps, a0 = 16, 16
+    cache = randn((layers, 1, a0 + s + 9, kvh, d), dtype, cuda, seed=s)
+    src = gather_ops.token_rows(cache[:, 0, a0:a0 + s])
+    assert src.data_ptr() == cache[:, 0, a0].data_ptr()          # read in place
+    pool = gather_ops.pool_rows(randn((layers, 300, ps, kvh, d), dtype, cuda, seed=1))
+    ids = page_ids(300, -(-s // ps), cuda, seed=s)
+    out = run_copy("page_scatter", variant, pool.clone(), ids, src)
+    assert torch.equal(out, page_scatter_ref(pool.clone(), ids, src))
+
+
+@pytest.mark.parametrize("variant", copy_kernel.VARIANTS)
+def test_layered_copies_skip_out_of_range_ids(cuda, variant):
+    pool = randn((3, 40, 3072), "bfloat16", cuda, seed=2)
+    ids = torch.tensor([5, -1, 40, 7, 1 << 30], dtype=torch.int32, device=cuda)
+    live = torch.tensor([0, 3], device=cuda)
+    got = run_copy("page_gather", variant, pool, ids)
+    assert torch.equal(got[:, live], pool[:, [5, 7]])
+    pages = randn((3, 5, 3072), "bfloat16", cuda, seed=3)
+    out = run_copy("page_scatter", variant, pool.clone(), ids, pages)
+    assert torch.equal(out, page_scatter_ref(pool.clone(), ids[live], pages[:, live]))
+
+
+def test_layered_copies_with_an_unaligned_layer_stride_take_the_generic_kernel(cuda):
+    """A layer stride 2 bytes past a multiple of 16: the wrapper chooses the
+    generic kernel before the launch, and refuses a forced bulk one."""
+    L, P, E = 3, 40, 3072
+    base = randn((L * (P * E + 1),), "bfloat16", cuda, seed=4)
+
+    def pool_of(b):
+        return torch.as_strided(b, (L, P, E), (P * E + 1, E, 1))
+
+    ids = page_ids(P, 13, cuda, seed=5)
+    pages = randn((L, 13, E), "bfloat16", cuda, seed=6)
+    with pytest.raises(ValueError, match="bulk variant needs"):
+        copy_kernel.page_gather(pool_of(base), ids, variant="bulk")
+    before = dict(copy_kernel.copy_variant_counts["page_gather"])
+    got = gather_ops.page_gather(pool_of(base), ids)
+    torch.cuda.synchronize()
+    assert copy_kernel.copy_variant_counts["page_gather"] == {
+        "bulk": before["bulk"], "generic": before["generic"] + 1}
+    assert torch.equal(got, page_gather_ref(pool_of(base), ids))
+    out = pool_of(base.clone())
+    gather_ops.page_scatter(out, ids, pages)
+    want = pool_of(base.clone())
+    page_scatter_ref(want, ids, pages)
+    assert torch.equal(out, want)
+
+
+def test_paged_kv_cache_on_the_card_matches_the_cpu(cuda):
+    """``PagedKVCache``'s installs, copy-on-write and leases on the card
+    (layered bulk copies, one launch per pool) against the same op stream
+    on the CPU (the plain versions): pools and leases bitwise equal."""
+    from repro_torch.kvcache.paged_kv import PagedKVCache, PagedKVConfig
+
+    cfg = PagedKVConfig(num_layers=4, num_kv_heads=2, head_dim=64, page_size=8,
+                        num_pages=32, max_pages_per_seq=8, dtype="bfloat16")
+    card, cpu = PagedKVCache(cfg, device=cuda), PagedKVCache(cfg, device="cpu")
+    rng = np.random.default_rng(9)
+
+    def kv(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    K.reset_launch_counts()
+    copy_kernel.reset_copy_variant_counts()
+    for seq, n in ((1, 13), (2, 16)):                # a short last page, whole pages
+        k, v = kv(4, n, 2, 64), kv(4, n, 2, 64)
+        card.add_sequence(seq, k, v)
+        cpu.add_sequence(seq, k, v)
+    for c in (card, cpu):
+        assert c.share_prefix(1, 3, 13) == 8
+        c.seq_len[3] = 6                             # the next append lands in a shared page
+    k, v = kv(4, 2, 64), kv(4, 2, 64)
+    card.append_token(3, k, v)
+    cpu.append_token(3, k, v)
+    assert card.stats()["cow_copies"] == cpu.stats()["cow_copies"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(card.k_pool.cpu(), cpu.k_pool) and torch.equal(card.v_pool.cpu(), cpu.v_pool)
+    for layer in (None, 1):
+        a, b = card.lease_kv(3, layer=layer), cpu.lease_kv(3, layer=layer)
+        assert torch.equal(a.k.cpu(), b.k) and torch.equal(a.v.cpu(), b.v)
+        a.release()
+        b.release()
+    # two installs and a copy-on-write: one scatter per pool each; one
+    # gather per pool for the copy and for each lease
+    assert K.launch_counts["page_scatter"] == 6 and K.launch_counts["page_gather"] == 6
+    assert copy_kernel.copy_variant_counts["page_scatter"] == {"bulk": 6, "generic": 0}
+
+
 def test_engine_on_the_card_goes_through_every_kernel(cuda):
     import repro_torch.models as M
     from repro_torch.configs.registry import get_smoke_config
@@ -214,12 +347,17 @@ def test_engine_on_the_card_goes_through_every_kernel(cuda):
     reqs = [Request(rid=i, prompt=prefix.copy() if i % 2 else
                     np.concatenate([prefix, [20 + i]]).astype(np.int32), max_new_tokens=4)
             for i in range(4)]
+    copy_kernel.reset_copy_variant_counts()
     for r in reqs:
         eng.submit(r)
     eng.run_until_drained(max_steps=200)
     assert all(r.done for r in reqs)
     assert eng.stats["cow_copies"] > 0
     assert all(n > 0 for n in K.launch_counts.values()), K.launch_counts
+    # every install and copy-on-write took the bulk (TMA) copy
+    for name in ("page_gather", "page_scatter"):
+        assert copy_kernel.copy_variant_counts[name] == {
+            "bulk": K.launch_counts[name], "generic": 0}, copy_kernel.copy_variant_counts
 
 
 def flash_inputs(seed, dtype, device, b, h, kvh, sq, sk, d):
