@@ -22,10 +22,17 @@ Phases, each printing one JSON line:
             installs, a 4095-token one among them, and copies-on-write,
             every layer of both pools), each variant of the copy kernel and
             the parent's call pattern (a staging copy, one launch per layer)
-            held and timed; flash_attention in bf16 and
+            held and timed; the weight pager's copies (``WEIGHT_COPY_CASES``:
+            one qwen2-1.5b layer of 47 2 MiB pages installed into or
+            gathered from a [376, 1048576] bf16 pool), both variants held
+            bitwise and timed beside index_copy_ / index_select; page ids
+            outside [0, P) held to the reference's contract (wrap [-P, 0),
+            fill or drop the rest) on both variants, [P, E] and layered,
+            bf16 / fp32 / int32; flash_attention in bf16 and
             fp32 at smollm's prefill bucket (q [1,16,32,64], 9 real heads
             over 3 KV heads), qwen2-1.5b's 4096-token causal prompt (q
-            [1,16,4096,128], 12 real heads over 2), a 256-token sliding
+            [1,16,4096,128], 12 real heads over 2) and its 1024-token one
+            (phase 7's shape), a 256-token sliding
             window, a ragged non-causal 200 x 333 case, llama3-8b's heads at
             4096 tokens (q [1,32,4096,128] over 8 KV heads) and smollm's at
             2048 (D 64), its inputs strided views as the model hands them
@@ -79,6 +86,28 @@ Phases, each printing one JSON line:
             whose prefill takes explicit positions (the plain attention
             route), and the bf16 tokens of the shortest request within
             tolerance of that decode's maximum logit.
+7. weight_pager  full-width qwen2-1.5b's 28 decoder layers (phase 6's bf16
+            weights, nothing cut) streamed from host memory: each layer's
+            weights flattened into one bf16 image of ~48.4 M elements, packed
+            by ``pack_layer_arrays`` at 2 MiB pages (47 a layer, 2.76 GB)
+            into a ``HostArrayStore``, mounted with a 256 MiB page buffer;
+            a ``RegionLayerSource`` with a device pool of 8 layers (376
+            pages) and a ``LayerWeightPager`` (4 slots, readahead 2, 2
+            fillers on their own streams) over it.  A 1024-token prompt
+            (numpy seed 0) is embedded and run through ``block_apply``
+            (prefill, flash_attention) layer by layer, then the final norm:
+            two passes, then a profiled one.  Launch counts zeroed just
+            before the two passes and read just after.  Checks: each pass's
+            last hidden state bitwise equal to ``transformer.prefill`` on
+            the resident weights, and the first pass's within 5e-2 (the
+            norm of the difference over the norm) of a resident prefill
+            with explicit positions, which takes the plain attention route
+            and not the kernel; no staging copy; the region's leases a
+            whole number of layers, each fetched layer one page_scatter,
+            each layer read one page_gather, all bulk; every
+            flash_attention launch hopper.  Prints ms per pass, H2D GB/s, the pager's
+            counters, the profiled pass's device busy ms, H2D ms and idle
+            share, peak memory, and the resident prefill's ms.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
@@ -139,10 +168,24 @@ COPY_MAIN_CASE = {"page_gather": "smollm_cow_gather", "page_scatter": "smollm_in
 # long prompt: 5 prefills, one fully shared, + a prefix + a copy-on-write)
 LAUNCH_CAPS = {"serve": {"page_scatter": 38, "page_gather": 2},
                "long_prompt": {"page_scatter": 12, "page_gather": 2}}
+# the weight pager's copies (phase 7's shapes): one qwen2-1.5b layer of 47
+# 2 MiB bf16 pages into / out of a device pool of 8 layers
+WEIGHT_COPY_CASES = {"qwen2_weight_install": "page_scatter",
+                     "qwen2_weight_gather": "page_gather"}
+WEIGHT_LAYER_PAGES = 47
+WEIGHT_PAGE_BYTES = 2 << 20
+WEIGHT_POOL_LAYERS = 8
+WEIGHT_POOL = (WEIGHT_POOL_LAYERS * WEIGHT_LAYER_PAGES, WEIGHT_PAGE_BYTES // 2)  # bf16
+WEIGHT_BUFFER_BYTES = 256 << 20        # the region's page buffer
+WEIGHT_PROMPT = 1024
+# the weight-paged prefill's last hidden state against the plain attention
+# route's: bf16 through 28 layers, norm of the difference over the norm
+WEIGHT_PLAIN_REL_TOL = 5e-2
 # flash_attention cases: (B, H, real heads, KVH, Sq, Sk, D, causal, window)
 FLASH_CASES = {
     "smollm_prefill": (1, 16, 9, 3, 32, 32, 64, True, None),
     "qwen2_4096": (1, 16, 12, 2, 4096, 4096, 128, True, None),
+    "qwen2_1024": (1, 16, 12, 2, 1024, 1024, 128, True, None),
     "window256": (1, 16, 12, 2, 4096, 4096, 128, True, 256),
     "ragged_200x333": (2, 16, 12, 2, 200, 333, 128, False, None),
     "llama3_4096": (1, 32, 32, 8, 4096, 4096, 128, True, None),
@@ -357,12 +400,15 @@ def phase_kernels(torch, flush):
                        bound_ms=bnd, bound_by=by)
             report["copies"].append(row)
     report["engine_copies"] = engine_copy_cases(torch, flush)
+    report["weight_copies"] = weight_copy_cases(torch, flush)
+    report["out_of_range_ids"] = out_of_range_cases(torch)
     for name, case in COPY_MAIN_CASE.items():
         serve[name] = next(r for r in report["engine_copies"] if r["case"] == case)
     report["flash"] = flash_cases(torch, rng, flush)
     serve["flash_attention"] = next(r for r in report["flash"]
                                     if r["case"] == "qwen2_4096" and r["dtype"] == "bfloat16")
     emit({"phase": "kernels", **report})
+    serve["weight_copies"] = report["weight_copies"]
     return serve
 
 
@@ -508,6 +554,94 @@ def engine_copy_cases(torch, flush):
             del caches, srcs, padded
         torch.cuda.empty_cache()
     return rows
+
+
+def weight_copy_cases(torch, flush):
+    """The weight pager's install and read of one qwen2-1.5b layer (47 pages
+    of 2 MiB) on its [376, 1048576] bf16 pool, the Pallas ``[P, E]``
+    contract: both variants held bitwise to the plain version, then the
+    kernel, the generic variant, the plain version and ``index_copy_`` /
+    ``index_select`` timed in turns."""
+    from repro_torch.kernels.page_gather import kernel as CK
+    from repro_torch.kernels.page_gather.ref import page_gather_ref, page_scatter_ref
+
+    rows = []
+    P, E = WEIGHT_POOL
+    n = WEIGHT_LAYER_PAGES
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pool = torch.randn((P, E), generator=g, device="cuda").to(torch.bfloat16)
+    pages = torch.randn((n, E), generator=g, device="cuda").to(torch.bfloat16)
+    ids = torch.randperm(P, generator=g, device="cuda")[:n].to(torch.int32)
+    ids_l = ids.long()
+    for case, name in WEIGHT_COPY_CASES.items():
+        if name == "page_scatter":
+            kernel = lambda variant=None: CK.page_scatter(pool, ids, pages, variant=variant)  # noqa: E731
+            plain = lambda: page_scatter_ref(pool, ids, pages)                               # noqa: E731
+            library = lambda: pool.index_copy_(0, ids_l, pages)                              # noqa: E731
+            want = page_scatter_ref(pool.clone(), ids, pages)
+        else:
+            kernel = lambda variant=None: CK.page_gather(pool, ids, variant=variant)          # noqa: E731
+            plain = lambda: page_gather_ref(pool, ids)                                       # noqa: E731
+            library = lambda: pool.index_select(0, ids_l)                                    # noqa: E731
+            want = page_gather_ref(pool, ids)
+        for var in CK.VARIANTS:
+            before = CK.copy_variant_counts[name][var]
+            if name == "page_scatter":
+                got = CK.page_scatter(pool.clone(), ids, pages, variant=var)
+            else:
+                got = kernel(var)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{case} {var}: not bitwise equal to the plain version")
+            check(CK.copy_variant_counts[name][var] == before + 1, f"{case}: {var} launch not counted")
+            del got
+        del want
+        before = CK.copy_variant_counts[name]["bulk"]
+        kernel()
+        torch.cuda.synchronize()
+        variant = "bulk" if CK.copy_variant_counts[name]["bulk"] == before + 1 else "generic"
+        times = measure(torch, flush, kernel, plain, library,
+                        {"generic_ms": lambda: kernel("generic")})
+        nbytes = 2.0 * n * E * pool.element_size() + 4 * n     # pages read + written, ids
+        bnd, by = bound_ms(nbytes, 0.0, "bfloat16")
+        rows.append(dict(case=case, name=name, pool=[P, E], pages=n, page_bytes=E * 2,
+                         variant=variant,
+                         variant_ms={"bulk": times["ms"], "generic": times.pop("generic_ms")},
+                         max_abs_err=0.0, **times, bound_ms=bnd, bound_by=by,
+                         gb_per_s=nbytes / times["ms"] / 1e6))
+    del pool, pages
+    torch.cuda.empty_cache()
+    return rows
+
+
+def out_of_range_cases(torch):
+    """Page ids outside [0, P) on the card, as the reference treats them
+    (jnp.take wraps [-P, 0) and fills the rest; .at[].set wraps and drops
+    the rest): each variant, [P, E] and layered, bf16 / fp32 / int32,
+    held bitwise to the plain version, which the CPU tests hold to JAX."""
+    from repro_torch.kernels.page_gather import kernel as CK
+    from repro_torch.kernels.page_gather.ref import page_gather_ref, page_scatter_ref
+
+    ids = torch.tensor([5, -1, 40, 7, 1 << 30, -40, -41, -(1 << 31)], dtype=torch.int32,
+                       device="cuda")
+    held = []
+    for dtype in ("bfloat16", "float32", "int32"):
+        for lead in ((), (3,)):
+            g = torch.Generator(device="cuda").manual_seed(1)
+            pool = torch.randn(lead + (40, 3072), generator=g, device="cuda") * 1000
+            pages = torch.randn(lead + (8, 3072), generator=g, device="cuda") * 1000
+            pool, pages = (t.to(getattr(torch, dtype)) for t in (pool, pages))
+            want_g = page_gather_ref(pool, ids).view(torch.uint8)
+            want_s = page_scatter_ref(pool.clone(), ids, pages).view(torch.uint8)
+            for var in CK.VARIANTS:
+                got = CK.page_gather(pool, ids, variant=var)
+                out = CK.page_scatter(pool.clone(), ids, pages, variant=var)
+                torch.cuda.synchronize()
+                check(torch.equal(got.view(torch.uint8), want_g),
+                      f"page_gather out-of-range ids {dtype} {lead} {var}: not the plain answer")
+                check(torch.equal(out.view(torch.uint8), want_s),
+                      f"page_scatter out-of-range ids {dtype} {lead} {var}: not the plain answer")
+                held.append(f"{dtype}{list(lead + (40, 3072))}:{var}")
+    return {"ids": ids.tolist(), "pool_pages": 40, "held": held}
 
 
 def visible_pairs(B, sq, sk, causal, window):
@@ -891,7 +1025,7 @@ def phase_long_prompt(torch, M, K):
     """Long prompts on full-width qwen2-1.5b: the prefill path through
     flash_attention, then decode through paged_attention.  Returns (launch
     counts, flash_attention's launches by variant, the page copies' launches
-    by variant)."""
+    by variant, the bf16 weights)."""
     import numpy as np
 
     from repro_torch.configs.registry import get_config
@@ -985,9 +1119,219 @@ def phase_long_prompt(torch, M, K):
           "bf16_max_gap_to_top_logit": max(margins),
           "bf16_tokens_equal_to_contiguous_argmax": sum(m == 0.0 for m in margins),
           "fp32_prompt_tokens": len(req32.prompt), "fp32_tokens_equal": len(ref32)})
-    del eng, logits, params
+    del eng, logits
     torch.cuda.empty_cache()
-    return launches, variants, copy_variants
+    return launches, variants, copy_variants, params
+
+
+# ------------------------------------------------------------------ phase 7
+
+
+def layer_images(torch, params):
+    """Each decoder layer's weights as one flat bf16 image (numpy ``uint16``
+    bit patterns, leaves in tree order), and the (treedef, shapes) that view
+    an image as the layer's tree."""
+    from repro_torch.interop import to_numpy, tree_flatten, tree_map
+
+    (stacked,) = params["segments"]
+    count = tree_flatten(stacked)[0][0].shape[0]
+    images = []
+    for i in range(count):
+        leaves, treedef = tree_flatten(tree_map(lambda a: a[i], stacked))
+        images.append(to_numpy(torch.cat([t.reshape(-1) for t in leaves])))
+    return images, treedef, [tuple(t.shape) for t in leaves]
+
+
+def layer_views(flat, treedef, shapes):
+    """A flat layer back into its parameter tree, as views of ``flat``."""
+    import numpy as np
+
+    from repro_torch.interop import tree_unflatten
+
+    leaves, off = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape))
+        leaves.append(flat[off:off + n].view(shape))
+        off += n
+    return tree_unflatten(treedef, leaves)
+
+
+def fetch_breakdown(torch, region, specs, count=4):
+    """Where a layer fetch's host time goes, one layer at a time on this
+    thread, for the first ``count`` layers: the lease (the core pager's
+    fills of 47 pages from the store into the page buffer; these layers are
+    not resident after a sweep) and
+    the pageable host-to-device copies of the lease views, synchronised."""
+    from repro_torch.kernels.page_gather.kernel import copy_h2d
+
+    staged = torch.empty((specs[0]["npages"], WEIGHT_PAGE_BYTES), dtype=torch.uint8,
+                         device="cuda")
+    rows = []
+    for i, spec in enumerate(specs[:count]):
+        t0 = time.perf_counter()
+        with region.lease_run(spec["first_page"], spec["npages"]) as run:
+            t1 = time.perf_counter()
+            for row, view in zip(staged, run.views):
+                copy_h2d(row, view.ctypes.data, view.nbytes)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        nbytes = spec["npages"] * WEIGHT_PAGE_BYTES
+        rows.append({"layer": i, "lease_ms": (t1 - t0) * 1e3, "h2d_ms": (t2 - t1) * 1e3,
+                     "lease_gb_per_s": nbytes / (t1 - t0) / 1e9,
+                     "h2d_gb_per_s": nbytes / (t2 - t1) / 1e9})
+    return rows
+
+
+def phase_weight_pager(torch, K, cfg, params):
+    """Full-width qwen2-1.5b prefill with its layer weights streamed from a
+    host region through ``RegionLayerSource`` and ``LayerWeightPager``.
+    Returns the launch counts of the two counted passes."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.models.transformer as T
+    from repro_torch.core import HostArrayStore, UMapConfig, umap, uunmap
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.page_gather import kernel as CK
+    from repro_torch.models.blocks import BlockCtx, block_apply
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.serve.weight_pager import (LayerWeightPager, RegionLayerSource,
+                                                pack_layer_arrays)
+
+    t0 = time.perf_counter()
+    images, treedef, shapes = layer_images(torch, params)
+    layer_elems = int(images[0].size)
+    buf, specs = pack_layer_arrays(images, WEIGHT_PAGE_BYTES)
+    del images
+    pack_s = time.perf_counter() - t0
+    per_layer = specs[0]["npages"]
+    check(per_layer == WEIGHT_LAYER_PAGES and all(s["npages"] == per_layer for s in specs),
+          f"weight pager: {per_layer} pages a layer, {WEIGHT_LAYER_PAGES} expected")
+    region = umap(HostArrayStore(buf), config=UMapConfig(
+        page_size=WEIGHT_PAGE_BYTES, buffer_size=WEIGHT_BUFFER_BYTES,
+        max_lease_run=max(64, per_layer)))
+    (seg,) = cfg.decoder_plan()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, WEIGHT_PROMPT)).astype(np.int32)).cuda()
+    positions = torch.arange(WEIGHT_PROMPT, dtype=torch.int32, device="cuda")[None]
+    ctx = BlockCtx(mode="prefill", positions=positions, default_positions=True)
+    pager = None
+    try:
+        src = RegionLayerSource(region, specs, device="cuda", dtype=torch.bfloat16,
+                                pool_pages=WEIGHT_POOL_LAYERS * per_layer)
+        pager = LayerWeightPager(src, num_slots=4, readahead=2, device="cuda", num_fillers=2)
+
+        def apply(flat, x, i):
+            return block_apply(cfg, seg, layer_views(flat, treedef, shapes), x, ctx)[0]
+
+        def paged_pass():
+            x = pager.run(T.embed_tokens(cfg, params, tokens), apply)
+            return rms_norm(x, params["final_norm"], cfg.norm_eps)[:, -1]
+
+        def resident():
+            return T.prefill(cfg, params, {"tokens": tokens}, [None])[0]
+
+        def leased():
+            return region.stats()["leases"]
+
+        want = resident()                # warm-up, and the reference
+        # explicit positions: the plain attention route, not flash_attention
+        plain = T.prefill(cfg, params, {"tokens": tokens, "positions": positions},
+                          [None])[0].float()
+        resident_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resident()
+            torch.cuda.synchronize()
+            resident_ms.append((time.perf_counter() - t0) * 1e3)
+
+        leases0 = leased()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        FK.reset_variant_counts()
+        CK.reset_copy_variant_counts()
+        pass_ms, pass_pages = [], []
+        for _ in range(2):
+            before = leased()
+            t0 = time.perf_counter()
+            got = paged_pass()
+            torch.cuda.synchronize()
+            pass_ms.append((time.perf_counter() - t0) * 1e3)
+            pass_pages.append(leased() - before)
+            check(torch.equal(got, want),
+                  "weight pager: the paged prefill is not bitwise equal to the resident one")
+            if len(pass_ms) == 1:
+                plain_rel = ((got.float() - plain).norm() / plain.norm()).item()
+        launches = dict(K.launch_counts)
+        flash_variants = dict(FK.variant_counts)
+        copy_variants = copy_variants_now()
+        peak = torch.cuda.max_memory_allocated()
+        leases = leased() - leases0
+        stats = dict(pager.stats)
+        installs, reads = leases // per_layer, stats["fills"]
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            before = leased()
+            t0 = time.perf_counter()
+            got = paged_pass()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+            prof_pages = leased() - before
+        check(torch.equal(got, want), "weight pager: the profiled pass is not bitwise equal")
+        breakdown = fetch_breakdown(torch, region, specs)
+        kernels, dev_us = device_kernels(prof)
+        check(kernels, "weight pager profile: torch.profiler saw no device time")
+        h2d = [e for e in kernels if "HtoD" in e.key]
+        h2d_ms = sum(dev_us(e) for e in h2d) / 1e3
+        busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+        top = sorted(kernels, key=dev_us, reverse=True)[:8]
+        emit({"phase": "weight_pager", "arch": cfg.name, "dtype": cfg.compute_dtype,
+              "prompt_tokens": WEIGHT_PROMPT, "layers": len(specs),
+              "layer_elems": layer_elems, "layer_pages": per_layer,
+              "page_bytes": WEIGHT_PAGE_BYTES, "packed_bytes": int(buf.nbytes),
+              "pack_s": pack_s, "buffer_bytes": WEIGHT_BUFFER_BYTES,
+              "pool_pages": src.pool_pages, "pool_bytes": src.pool_pages * WEIGHT_PAGE_BYTES,
+              "pager": {"num_slots": 4, "readahead": 2, "num_fillers": 2},
+              "pass_ms": pass_ms, "pass_pages_fetched": pass_pages,
+              "h2d_gb_per_s": [p * WEIGHT_PAGE_BYTES / ms / 1e6
+                               for p, ms in zip(pass_pages, pass_ms)],
+              "resident_prefill_ms": sorted(resident_ms)[len(resident_ms) // 2],
+              "pager_stats": stats, "installs": installs, "reads": reads,
+              "region_leases": leases, "plain_route_rel_err": plain_rel,
+              "staging_copies": src.staging_copies, "peak_memory_bytes": peak,
+              "fetch_breakdown": breakdown,
+              "launches": launches, "flash_attention_variants": flash_variants,
+              "copy_variants": copy_variants,
+              "profiled_pass": {"wall_ms": prof_ms, "pages_fetched": prof_pages,
+                                "device_busy_ms": busy_ms,
+                                "device_idle_share": 1 - busy_ms / prof_ms,
+                                "h2d_ms": h2d_ms, "h2d_copies": sum(e.count for e in h2d),
+                                "h2d_device_gb_per_s": (prof_pages * WEIGHT_PAGE_BYTES
+                                                        / h2d_ms / 1e6 if h2d_ms else None),
+                                "kernel_busy_ms": busy_ms - h2d_ms,
+                                "top_device_ops": [{"name": e.key[:80], "calls": e.count,
+                                                    "ms": dev_us(e) / 1e3} for e in top]}})
+        check(src.staging_copies == 0, f"weight pager: {src.staging_copies} staging copies")
+        check(plain_rel <= WEIGHT_PLAIN_REL_TOL,
+              f"weight pager: relative error {plain_rel} to the plain attention route")
+        check(leases > 0 and leases % per_layer == 0 and installs <= reads,
+              f"weight pager: {leases} leases for {reads} layer reads of {per_layer} pages")
+        check(launches["page_scatter"] == installs and launches["page_gather"] == reads > 0,
+              f"weight pager: {launches} for {installs} installs and {reads} reads")
+        for name in ("page_scatter", "page_gather"):
+            check(copy_variants[name] == {"bulk": launches[name], "generic": 0},
+                  f"weight pager: {name} launches by variant {copy_variants[name]}")
+        check(launches["flash_attention"] == 2 * len(specs)
+              and flash_variants == {"hopper": launches["flash_attention"], "generic": 0},
+              f"weight pager: flash_attention launches {launches['flash_attention']}, "
+              f"by variant {flash_variants}")
+        return launches, copy_variants
+    finally:
+        if pager is not None:
+            pager.close()
+        uunmap(region)
 
 
 # ------------------------------------------------------------------ main
@@ -1079,7 +1423,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. long prompts on full-width qwen2-1.5b (the prefill path)
-    long_launches, flash_variants, long_copy_variants = phase_long_prompt(torch, M, K)
+    long_launches, flash_variants, long_copy_variants, qwen2 = phase_long_prompt(torch, M, K)
+
+    # 7. the same weights streamed from a host region (the weight pager)
+    weight_launches, weight_copy_variants = phase_weight_pager(
+        torch, K, get_config("qwen2-1.5b"), qwen2)
+    del qwen2
+    torch.cuda.empty_cache()
 
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
@@ -1090,7 +1440,8 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "launches": counted[name],
                "launches_by_path": {"serve": launches[name],
-                                    "long_prompt": long_launches[name]},
+                                    "long_prompt": long_launches[name],
+                                    "weight_pager": weight_launches[name]},
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
@@ -1106,7 +1457,12 @@ def main() -> int:
             row["case"] = s["case"]
             row["parent_ms"] = s["parent_ms"]
             row["copy_variants"] = {"serve": copy_variants[name],
-                                    "long_prompt": long_copy_variants[name]}
+                                    "long_prompt": long_copy_variants[name],
+                                    "weight_pager": weight_copy_variants[name]}
+            # the weight path's call: one layer of 47 2 MiB pages, [P, E]
+            w = next(r for r in kstats["weight_copies"] if r["name"] == name)
+            row["weight_pager_case"] = {k: w[k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "variant_ms")}
         rows.append(row)
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,19 +1,15 @@
 """Online access-pattern classification — the *automatic* side of §3.6.
 
-A copy of ``repro/core/pattern.py`` (pure Python), kept in the port so that
-it imports nothing of the JAX package; the paged KV cache feeds it
-per-sequence page touches.
-
 The paper argues that page management should adapt to the application's
 access pattern, but its mechanism is static: the application declares its
-pattern up front (the JAX package's ``AccessAdvice``) and UMap configures
-readahead/eviction accordingly.  Follow-on work (eBPF-mm, Nomad) shows the
-same knowledge can be *learned online* from the fault stream.  This module
-is that learner: a per-region classifier that watches demand-fault page
-numbers and detects the phase the region is currently in, so the pager can
-retune ``read_ahead`` and the eviction policy mid-run.
+pattern up front (our :class:`~repro_torch.core.hints.AccessAdvice`) and UMap
+configures readahead/eviction accordingly.  Follow-on work (eBPF-mm, Nomad)
+shows the same knowledge can be *learned online* from the fault stream.  This
+module is that learner: a per-region classifier that watches demand-fault
+page numbers and detects the phase the region is currently in, so the pager
+can retune ``read_ahead`` and the eviction policy mid-run.
 
-Vocabulary (mirrors the JAX package's advice enum):
+Vocabulary (mirrors the advice enum — see :func:`repro_torch.core.hints.advice_for_phase`):
 
   SEQUENTIAL   monotone unit-stride faults       -> deep readahead, LRU
   STRIDED      dominant constant stride != 1     -> stride-aware readahead
@@ -56,7 +52,7 @@ class Phase(enum.Enum):
 
 
 #: Per-phase (read_ahead, eviction_policy) tuning — the automatic counterpart
-#: of :data:`repro.core.hints.ADVICE_SETTINGS`.  STRIDED readahead is applied
+#: of :data:`repro_torch.core.hints.ADVICE_SETTINGS`.  STRIDED readahead is applied
 #: *along the detected stride* by the pager (pages last + k*stride), which is
 #: what a static advice vocabulary cannot express.
 PHASE_SETTINGS = {

@@ -14,9 +14,12 @@ every layer of a pool, in one launch per pool:
   elements fill its n pages in order and the rest of them is written as
   zeros (the reference pads with zeros before it installs).
 
-A pool's rows are contiguous; its layer stride is free.  Page ids must be
-unique for a scatter (duplicate order is undefined, as in the reference);
-an id outside ``[0, P)`` is skipped.  Two variants, chosen before the
+A pool's rows are contiguous; its layer stride is free.  Page ids follow
+the reference (``jnp.take`` / ``.at[].set``): an id in ``[-P, 0)`` means
+page ``P + id``; a gather row whose id lies outside ``[-P, P)`` is filled
+with :func:`take_fill` of the pool's dtype, and a scatter drops such an id.
+Ids must be unique after wrapping for a scatter (duplicate order is
+undefined, as in the reference).  Two variants, chosen before the
 launch from addresses and sizes alone (:func:`choose_variant`) and never
 retried on the other: ``"bulk"`` (TMA bulk copies through a shared-memory
 ring) where every base, layer stride, row and source run is a multiple of
@@ -24,17 +27,20 @@ ring) where every base, layer stride, row and source run is a multiple of
 wrappers check device, dtype and shapes, launch on PyTorch's current
 stream without synchronising, and raise if a launch was refused.  Each
 launch adds one to ``launch_counts[<name>]`` and to
-``copy_variant_counts[<name>][<variant>]``.
+``copy_variant_counts[<name>][<variant>]``.  :func:`copy_h2d` copies host
+memory by address into a CUDA tensor (no kernel, not counted).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import check_launch, load_library
+from .ref import take_fill
 
 VARIANTS = ("bulk", "generic")
 
@@ -54,11 +60,42 @@ def _function():
     fn = _fns.get("copy")
     if fn is None:
         fn = load_library("page_gather").repro_page_copy
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, i64, p, p, i64, i, i, i64, i64, i, i, i, p]
+        p, i, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
+        fn.argtypes = [p, p, i64, p, p, i64, i, i, i64, i64, i, u64, u64, i, i, p]
         fn.restype = ctypes.c_int
         _fns["copy"] = fn
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _pad_words(dtype: torch.dtype) -> Tuple[int, int]:
+    """A gather's fill as two little-endian 64-bit words: 16 bytes of
+    :func:`take_fill` repeated (every element size divides 16)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    raw = bytes(torch.full((16 // size,), take_fill(dtype), dtype=dtype)
+                .view(torch.uint8).tolist())
+    return int.from_bytes(raw[:8], "little"), int.from_bytes(raw[8:], "little")
+
+
+def copy_h2d(dst: torch.Tensor, src_address: int, nbytes: int) -> None:
+    """Copy ``nbytes`` of host memory at ``src_address`` into the start of
+    the contiguous CUDA tensor ``dst`` on PyTorch's current stream, without
+    synchronising: the caller keeps the host memory alive and unchanged
+    until the stream has passed the copy."""
+    if not (dst.is_cuda and dst.is_contiguous()):
+        raise ValueError("copy_h2d: dst must be a contiguous CUDA tensor")
+    if not 0 <= nbytes <= dst.numel() * dst.element_size():
+        raise ValueError(f"copy_h2d: {nbytes} bytes do not fit dst")
+    fn = _fns.get("h2d")
+    if fn is None:
+        fn = load_library("page_gather").repro_copy_h2d
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["h2d"] = fn
+    err = fn(dst.data_ptr(), src_address, nbytes,
+             torch.cuda.current_stream(dst.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"copy_h2d: cudaMemcpyAsync failed with cudaError {err}")
 
 
 def bulk_shape() -> Dict[str, int]:
@@ -112,8 +149,9 @@ def choose_variant(addresses, layer_strides, row_bytes: int, src_bytes: int) -> 
 
 def _copy(name: str, variant: Optional[str], src: torch.Tensor, src_ids, src_layer: int,
           dst: torch.Tensor, dst_ids, dst_layer: int, layers: int, n: int, row_bytes: int,
-          src_bytes: int, num_pages: int) -> None:
-    """Launch one layered copy; strides and sizes in bytes."""
+          src_bytes: int, num_pages: int, pad: Tuple[int, int] = (0, 0)) -> None:
+    """Launch one layered copy; strides and sizes in bytes; ``pad`` the
+    16 bytes written where nothing is read."""
     if variant not in (None, *VARIANTS):
         raise ValueError(f"{name} kernel: unknown variant {variant!r}")
     strides = (src_layer, dst_layer) if layers > 1 else ()
@@ -127,7 +165,7 @@ def _copy(name: str, variant: Optional[str], src: torch.Tensor, src_ids, src_lay
     err = _function()(
         src.data_ptr(), src_ids.data_ptr() if src_ids is not None else None, src_layer,
         dst.data_ptr(), dst_ids.data_ptr() if dst_ids is not None else None, dst_layer,
-        layers, n, row_bytes, src_bytes, num_pages, int(variant == "bulk"),
+        layers, n, row_bytes, src_bytes, num_pages, *pad, int(variant == "bulk"),
         _sm_count(dst.device), torch.cuda.current_stream(dst.device).cuda_stream)
     check_launch(name, err)
     copy_variant_counts[name][variant] += 1
@@ -144,7 +182,7 @@ def page_gather(pool: torch.Tensor, page_ids: torch.Tensor,
     es = pool.element_size()
     out = torch.empty((L, n, E), dtype=pool.dtype, device=pool.device)
     _copy("page_gather", variant, pool, page_ids, layer * es, out, None, n * E * es,
-          L, n, E * es, n * E * es, P)
+          L, n, E * es, n * E * es, P, _pad_words(pool.dtype))
     return out if pool.dim() == 3 else out[0]
 
 

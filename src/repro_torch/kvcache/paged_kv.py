@@ -350,6 +350,23 @@ class PagedKVCache:
                            for s, c in self._classifiers.items()},
             }
 
+    def register_telemetry(self, registry=None, label=None) -> List[str]:
+        """Opt this cache into the telemetry registry (DESIGN.md §15).
+
+        Registers a serve collector (occupancy, eviction, phase-mix
+        gauges) and a lease collector (KV lease counters); returns their
+        registry names.  Scrapes go through :meth:`stats`, which takes
+        the host metadata lock — the documented scrape-path exception
+        (§15.3): that lock is never held across store I/O or device work,
+        only across dict reads, so a scrape can stall a metadata update
+        by nanoseconds but can never block a fill or a decode step.
+        """
+        from ..telemetry import default_registry
+        from ..telemetry.collectors import LeaseCollector, ServeCollector
+        reg = registry if registry is not None else default_registry()
+        return [reg.register(ServeCollector(kv=self, label=label)),
+                reg.register(LeaseCollector(kv=self, label=label))]
+
 
 class ContiguousKVCache:
     """The mmap baseline: per-sequence max-length pre-allocation.

@@ -194,6 +194,18 @@ class ServeEngine:
         self._caches = self._init_caches()
         self._pending_prefills: list = []   # (request, start mark, end mark)
 
+    def register_telemetry(self, registry=None, label=None) -> str:
+        """Opt this engine into the telemetry registry (DESIGN.md §15).
+
+        Returns the registry name of the serve collector.  The collector
+        reads the engine's plain-dict counters and queue lengths only —
+        no engine lock exists, and a scrape never touches device state.
+        """
+        from ..telemetry import default_registry
+        from ..telemetry.collectors import ServeCollector
+        reg = registry if registry is not None else default_registry()
+        return reg.register(ServeCollector(engine=self, label=label))
+
     # -------------------------------------------------------------- tenants
 
     def add_tenant(self, tenant: Tenant) -> Tenant:

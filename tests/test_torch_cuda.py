@@ -21,7 +21,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.page_gather import kernel as copy_kernel
 from repro_torch.kernels.page_gather import ops as gather_ops
-from repro_torch.kernels.page_gather.ref import page_gather_ref, page_scatter_ref
+from repro_torch.kernels.page_gather.ref import page_gather_ref, page_scatter_ref, take_fill
 from repro_torch.kernels.paged_attention import ops as attn_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -254,16 +254,37 @@ def test_layered_scatter_reads_the_prefill_cache_in_place(cuda, variant, dtype, 
     assert torch.equal(out, page_scatter_ref(pool.clone(), ids, src))
 
 
+def raw(t):
+    """A tensor's bytes (NaN fills compare by their bits)."""
+    return t.contiguous().view(torch.uint8)
+
+
 @pytest.mark.parametrize("variant", copy_kernel.VARIANTS)
-def test_layered_copies_skip_out_of_range_ids(cuda, variant):
-    pool = randn((3, 40, 3072), "bfloat16", cuda, seed=2)
-    ids = torch.tensor([5, -1, 40, 7, 1 << 30], dtype=torch.int32, device=cuda)
-    live = torch.tensor([0, 3], device=cuda)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int32"])
+@pytest.mark.parametrize("layers", [None, 3])
+def test_layered_copies_skip_out_of_range_ids(cuda, variant, dtype, layers):
+    """The JAX package's contract (jnp.take / .at[].set), every row held:
+    -1 wraps to page 39, -40 to page 0; a gather fills the rows of 40,
+    -41 and 2**30 with jnp.take's fill (NaN, the int32 minimum); a scatter
+    writes 5, 39, 7 and 0 and drops the rest."""
+    lead = () if layers is None else (layers,)
+    pool = randn(lead + (40, 3072), "float32", cuda, seed=2)
+    pool = (pool * 1000).to(torch.int32) if dtype == "int32" else pool.to(TORCH_DTYPE[dtype])
+    ids = torch.tensor([5, -1, 40, 7, 1 << 30, -40, -41], dtype=torch.int32, device=cuda)
     got = run_copy("page_gather", variant, pool, ids)
-    assert torch.equal(got[:, live], pool[:, [5, 7]])
-    pages = randn((3, 5, 3072), "bfloat16", cuda, seed=3)
+    assert torch.equal(raw(got), raw(page_gather_ref(pool, ids)))
+    fill = take_fill(pool.dtype)
+    for row, page in enumerate([5, 39, None, 7, None, 0, None]):
+        want = (pool[..., page, :] if page is not None
+                else torch.full_like(pool[..., 0, :], fill))
+        assert torch.equal(raw(got[..., row, :]), raw(want)), row
+    pages = randn(lead + (7, 3072), "float32", cuda, seed=3).to(pool.dtype)
     out = run_copy("page_scatter", variant, pool.clone(), ids, pages)
-    assert torch.equal(out, page_scatter_ref(pool.clone(), ids[live], pages[:, live]))
+    assert torch.equal(raw(out), raw(page_scatter_ref(pool.clone(), ids, pages)))
+    live = torch.tensor([0, 1, 3, 5], device=cuda)
+    wrapped = torch.tensor([5, 39, 7, 0], dtype=torch.int32, device=cuda)
+    want = page_scatter_ref(pool.clone(), wrapped, pages[..., live, :])
+    assert torch.equal(raw(out), raw(want))
 
 
 def test_layered_copies_with_an_unaligned_layer_stride_take_the_generic_kernel(cuda):
@@ -506,3 +527,190 @@ def test_flash_attention_hopper_is_deterministic(cuda):
     first = run_flash(q, k, v, "hopper", num_heads=12)
     second = run_flash(q, k, v, "hopper", num_heads=12)
     assert torch.equal(first, second)
+
+
+# ------------------------------------------------------------ weight paging
+
+
+@pytest.mark.parametrize("variant", copy_kernel.VARIANTS)
+@pytest.mark.parametrize("name", ["page_scatter", "page_gather"])
+def test_weight_path_copies_match_plain_bitwise(cuda, variant, name):
+    """qwen2-1.5b's weight path: a [376, 1,048,576] bf16 pool of 2 MiB pages
+    (8 layers of 47), one layer's 47 pages installed or gathered."""
+    P, E, n = 376, 1 << 20, 47
+    pool = randn((P, E), "bfloat16", cuda, seed=11)
+    ids = page_ids(P, n, cuda, seed=12)
+    if name == "page_gather":
+        got = run_copy(name, variant, pool, ids)
+        assert torch.equal(got, page_gather_ref(pool, ids))
+    else:
+        pages = randn((n, E), "bfloat16", cuda, seed=13)
+        got = run_copy(name, variant, pool.clone(), ids, pages)
+        assert torch.equal(got, page_scatter_ref(pool.clone(), ids, pages))
+
+
+def test_copy_h2d_copies_read_only_host_pages(cuda):
+    host = np.random.default_rng(14).integers(0, 255, size=3 << 20, dtype=np.uint8)
+    view = host[1 << 20:]
+    view.flags.writeable = False
+    dst = torch.zeros(4 << 20, dtype=torch.uint8, device=cuda)
+    copy_kernel.copy_h2d(dst, view.ctypes.data, view.nbytes)
+    torch.cuda.synchronize()
+    assert torch.equal(dst[:view.nbytes].cpu(), torch.from_numpy(host[1 << 20:].copy()))
+    assert (dst[view.nbytes:] == 0).all()
+    with pytest.raises(ValueError, match="do not fit"):
+        copy_kernel.copy_h2d(dst, view.ctypes.data, dst.numel() + 1)
+
+
+def packed_layers(seed, page):
+    """Three bf16 layers (uint16 bit patterns, as the port hands bf16 to
+    numpy) of 4, 2 and 4 pages, packed into one image."""
+    from repro_torch.serve.weight_pager import pack_layer_arrays
+
+    rng = np.random.default_rng(seed)
+    half = page // 2
+    layers = [rng.integers(0, 1 << 16, size=n, dtype=np.uint16)
+              for n in (4 * half - 3, 2 * half, 4 * half)]
+    buf, specs = pack_layer_arrays(layers, page)
+    return layers, buf, specs
+
+
+def region_of(buf, page, **cfg):
+    from repro_torch.core import HostArrayStore, UMapConfig, umap
+
+    return umap(HostArrayStore(buf.copy()),
+                config=UMapConfig(page_size=page, buffer_size=buf.nbytes, max_lease_run=8,
+                                  **cfg))
+
+
+@pytest.mark.parametrize("zero_copy", [True, False])
+def test_region_layer_source_on_the_card_matches_the_cpu(cuda, zero_copy):
+    """The same packed store read through a card source and a CPU source:
+    bitwise equal layers, equal leases, no host staging on the lease path,
+    and one bulk scatter per install and one bulk gather per read."""
+    import warnings
+
+    from repro_torch.core import uunmap
+    from repro_torch.serve.weight_pager import RegionLayerSource
+
+    page = 64 * 1024
+    layers, buf, specs = packed_layers(15, page)
+    regs = [region_of(buf, page, zero_copy_leases=zero_copy) for _ in range(2)]
+    try:
+        card = RegionLayerSource(regs[0], specs, device=cuda, pool_pages=4, dtype=torch.bfloat16)
+        cpu = RegionLayerSource(regs[1], specs, device="cpu", pool_pages=4, dtype=torch.bfloat16)
+        K.reset_launch_counts()
+        copy_kernel.reset_copy_variant_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")          # no read-only-array warning
+            for _ in range(2):
+                for i in (0, 1, 2, 1):
+                    got = card[i]
+                    # random bit patterns hold NaNs: compare bits
+                    assert got.is_cuda and torch.equal(raw(got.cpu()), raw(cpu[i]))
+                    assert np.array_equal(got.cpu().view(torch.int16).numpy().view(np.uint16),
+                                          layers[i].reshape(got.shape))
+        assert regs[0].stats()["leases"] == regs[1].stats()["leases"]
+        # a pool of 4 pages holds one layer: each of the 8 reads installs
+        # (4 + 2 + 4 + 2 pages a sweep) and gathers once
+        assert card.staging_copies == cpu.staging_copies == (0 if zero_copy else 24)
+        assert copy_kernel.copy_variant_counts == {
+            "page_gather": {"bulk": 8, "generic": 0}, "page_scatter": {"bulk": 8, "generic": 0}}
+    finally:
+        for r in regs:
+            uunmap(r)
+
+
+class TestGatherCompletesUnderLock:
+    """Port of ``tests/test_train_ooc.py``'s ``TestGatherCompletesUnderLock``
+    across CUDA streams.  ``page_scatter`` installs into the pool in place,
+    from whichever filler's stream fetched the layer; a gather still running
+    when another stream scatters into the same slots would read torn pages.
+    Every gather (and install) of the pool completes before the source's
+    lock is released; this pins that contract with 512 KiB pages, and with
+    two fillers on their own streams installing into the same slots."""
+
+    PAGE = 512 * 1024
+
+    def tree(self):
+        """fp32 leaves of 4, 2 and 4 pages, as the reference's."""
+        rng = np.random.default_rng(5)
+        return [rng.standard_normal(n).astype(np.float32)
+                for n in (self.PAGE, self.PAGE // 2, self.PAGE)]
+
+    def source(self, leaves, cuda, pool_pages=None):
+        from repro_torch.serve.weight_pager import RegionLayerSource, pack_layer_arrays
+
+        buf, specs = pack_layer_arrays(leaves, self.PAGE)
+        region = region_of(buf, self.PAGE)
+        return region, RegionLayerSource(region, specs, device=cuda, pool_pages=pool_pages)
+
+    def test_gather_result_ready_on_return(self, cuda, monkeypatch):
+        import repro_torch.serve.weight_pager as wp
+        from repro_torch.core import uunmap
+
+        leaves = self.tree()
+        region, src = self.source(leaves, cuda)
+        gathered = []
+        orig = wp.page_gather
+
+        def capture(pool, ids, **kw):
+            out = orig(pool, ids, **kw)
+            ev = torch.cuda.Event()
+            ev.record()
+            gathered.append(ev)
+            return out
+
+        monkeypatch.setattr(wp, "page_gather", capture)
+        try:
+            for _ in range(2):                     # fetch-install pass + cached pass
+                for i, leaf in enumerate(leaves):
+                    got = src[i]
+                    assert gathered[-1].query(), \
+                        "pool gather must complete before __getitem__ returns"
+                    np.testing.assert_array_equal(got.cpu().numpy(), leaf)
+                src.invalidate()
+            assert len(gathered) == 2 * len(leaves)
+        finally:
+            uunmap(region)
+
+    def test_two_fillers_on_their_own_streams_share_one_layer_of_slots(self, cuda):
+        """A pool of one layer (4 pages): every install evicts the layer
+        before it into the same slots.  Two weight-pager fillers, each on its
+        own stream, and two more reader threads on their own streams keep
+        installing and gathering; every layer comes back whole."""
+        import threading
+
+        from repro_torch.core import uunmap
+        from repro_torch.serve.weight_pager import LayerWeightPager
+
+        leaves = self.tree()
+        region, src = self.source(leaves, cuda, pool_pages=4)
+        bad = []
+
+        def reader(seed):
+            rng = np.random.default_rng(seed)
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for i in rng.integers(0, len(leaves), size=12):
+                    if not np.array_equal(src[int(i)].cpu().numpy(), leaves[i]):
+                        bad.append(int(i))
+
+        try:
+            pager = LayerWeightPager(src, num_slots=2, readahead=1, device=cuda, num_fillers=2)
+            threads = [threading.Thread(target=reader, args=(s,)) for s in range(2)]
+            try:
+                for t in threads:
+                    t.start()
+                want = sum(np.pad(a, (0, self.PAGE - a.size)) for a in leaves)
+                for _ in range(3):
+                    x = pager.run(torch.zeros(self.PAGE, device=cuda), lambda p, x, i: x + (
+                        torch.nn.functional.pad(p, (0, x.numel() - p.numel()))))
+                    np.testing.assert_array_equal(x.cpu().numpy(), want)
+            finally:
+                for t in threads:
+                    t.join(timeout=60)
+                pager.close()
+            assert not any(t.is_alive() for t in threads) and bad == []
+            assert pager.stats["fills"] >= len(leaves)
+        finally:
+            uunmap(region)

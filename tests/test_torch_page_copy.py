@@ -203,3 +203,71 @@ def test_cpu_tensors_run_the_plain_versions_and_count_nothing():
     assert after == before
     with pytest.raises(ValueError, match="one CUDA device"):
         copy_kernel.page_scatter(pool, ids, torch.ones((2, 3, 3)))
+
+
+# the repaired contract for page ids outside [0, P): the JAX package's
+# jnp.take (wrap [-P, 0), fill the rest) and .at[].set (wrap, drop the rest)
+OUT_OF_RANGE_IDS = np.array([-1, -4, -5, 4, 7, 1, -(1 << 31), (1 << 31) - 1], np.int32)
+OUT_OF_RANGE_DTYPES = {"float32": (jnp.float32, torch.float32),
+                       "bfloat16": (jnp.bfloat16, torch.bfloat16),
+                       "int32": (jnp.int32, torch.int32)}
+
+
+def bits(x):
+    """Raw bit patterns (NaN fills compare by their bits)."""
+    a = np.asarray(x.view(torch.int16) if x.dtype == torch.bfloat16 else x) \
+        if isinstance(x, torch.Tensor) else np.asarray(x)
+    return a.view({2: np.uint16, 4: np.uint32}[a.dtype.itemsize])
+
+
+@pytest.mark.parametrize("dtype", list(OUT_OF_RANGE_DTYPES))
+@pytest.mark.parametrize("layers", [None, 3])
+def test_out_of_range_ids_match_jnp_take_and_at_set(dtype, layers):
+    """P = 4: ids -1 and -4 wrap to pages 3 and 0, id 1 is page 1; the
+    other ids read as jnp.take's fill (NaN, or the int32 minimum) and are
+    dropped by a scatter.  Both the Pallas [P, E] contract and the layered
+    pool, through ops (the plain versions for CPU tensors)."""
+    jdt, tdt = OUT_OF_RANGE_DTYPES[dtype]
+    rng = np.random.default_rng(9)
+    n, P, E = len(OUT_OF_RANGE_IDS), 4, 6
+    lead = () if layers is None else (layers,)
+    pool = (rng.standard_normal(lead + (P, E)) * 100).astype(np.float32)
+    pages = (rng.standard_normal(lead + (n, E)) * 100).astype(np.float32)
+    # the scatter's pages for ids that land in the pool: one per page
+    keep = np.array([0, 1, 5])                     # ids -1, -4, 1 -> pages 3, 0, 1
+    tpool = torch.from_numpy(pool).to(tdt)
+    tids = torch.from_numpy(OUT_OF_RANGE_IDS)
+    got = gather_ops.page_gather(tpool, tids)
+    scattered = gather_ops.page_scatter(tpool.clone(), tids, torch.from_numpy(pages).to(tdt))
+    jids = jnp.asarray(OUT_OF_RANGE_IDS)
+    for layer in ([None] if layers is None else range(layers)):
+        pick = (lambda a: a) if layer is None else (lambda a, l=layer: a[l])  # noqa: E731
+        jpool = jnp.asarray(pick(pool)).astype(jdt)
+        want = jnp.take(jpool, jids, axis=0)
+        np.testing.assert_array_equal(bits(pick(got)), bits(want))
+        want = jpool.at[jids[keep]].set(jnp.asarray(pick(pages)[keep]).astype(jdt))
+        np.testing.assert_array_equal(bits(pick(scattered)), bits(want))
+    # the ids the scatter drops really are dropped by the reference too
+    jpool = jnp.asarray(pool if layers is None else pool[0]).astype(jdt)
+    jpages = jnp.asarray(pages if layers is None else pages[0]).astype(jdt)
+    np.testing.assert_array_equal(bits(jpool.at[jids].set(jpages)),
+                                  bits(jpool.at[jids[keep]].set(jpages[keep])))
+
+
+def test_take_fill_is_jnp_takes_fill():
+    """The plain version's fill value for every pool dtype the port uses,
+    and the kernel's 16-byte fill pattern made from it, bit for bit against
+    jnp.take's."""
+    from repro_torch.kernels.page_gather.kernel import _pad_words
+    from repro_torch.kernels.page_gather.ref import take_fill
+
+    for jdt, tdt in [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16),
+                     (jnp.float16, torch.float16), (jnp.int32, torch.int32),
+                     (jnp.int8, torch.int8), (jnp.uint8, torch.uint8),
+                     (jnp.uint16, torch.uint16)]:
+        want = np.asarray(jnp.take(jnp.zeros((1, 1), jdt), jnp.asarray([3]), axis=0))
+        got = torch.full((1, 1), take_fill(tdt), dtype=tdt)
+        assert got.view(torch.uint8).numpy().tobytes() == want.tobytes(), tdt
+        lo, hi = _pad_words(tdt)
+        pattern = lo.to_bytes(8, "little") + hi.to_bytes(8, "little")
+        assert pattern == want.tobytes() * (16 // want.itemsize), tdt
