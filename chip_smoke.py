@@ -108,6 +108,37 @@ Phases, each printing one JSON line:
             flash_attention launch hopper.  Prints ms per pass, H2D GB/s, the pager's
             counters, the profiled pass's device busy ms, H2D ms and idle
             share, peak memory, and the resident prefill's ms.
+8. train    full-width smollm-135m training (30 layers, d_model 576, 9
+            heads padded to 16 over 3, d_ff 1536, vocab 49152; fp32
+            parameters, bf16 compute, remat "full", attention chunks of 512;
+            weights from seed 0) at batch 4 x 2048 tokens, so every layer's
+            attention takes the chunked flash-VJP path.  (1) The training
+            attention (``FlashVJPAttention``) at those heads and length,
+            bf16 and fp32, against autograd through the plain dense
+            attention: output within 1e-2 / 2e-5 per row, dq, dk, dv within
+            1e-1 / 2e-5 per row floored at the median row norm and 1e-2 /
+            2e-5 over the tensor (``TRAIN_GRAD_ROW_TOL``: why bf16 rows need
+            more); forward + backward timed beside the dense route and
+            SDPA's.  (2) The
+            resident ``Trainer`` as ``launch/train.py`` builds it, fed by
+            ``data/pipeline.lm_batches`` from a synthetic shard under
+            ``build/``: 4 steps, every loss finite and the first within 0.5
+            of ln 49152; step ms, tok/s, peak memory, the idle share of the
+            profiled 4th step.  (3) ``OOCTrainer`` resident then paged for 3
+            steps from the same weights and batches: 1 MiB pages, ~3x
+            oversubscription (buffers sized as the reference's tests size
+            them), a device pool holding every parameter page.  Launch
+            counts zeroed just before the paged steps and read just after.
+            Checks: paged and resident state_dicts and losses bitwise equal,
+            no staging copy, one bulk page_scatter per leaf fetched and one
+            bulk page_gather per leaf read.  Prints each mode's step s and
+            their ratio, the sweep's pages and chunks, its host<->device
+            copy time, the grad phase's leaf fetch (bytes, s), and a
+            profiled 4th paged step's idle share.  A watchdog ends the run
+            with every thread's stack if the out-of-core part hangs.  (4) A
+            fresh ``Trainer`` on the same 3 batches: losses within 1e-4
+            relative of the paged ``OOCTrainer``'s, parameters within 1e-4
+            of their norm.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
@@ -181,6 +212,30 @@ WEIGHT_PROMPT = 1024
 # the weight-paged prefill's last hidden state against the plain attention
 # route's: bf16 through 28 layers, norm of the difference over the norm
 WEIGHT_PLAIN_REL_TOL = 5e-2
+# phase 8: full-width smollm-135m training, batch 4 x 2048 (every layer's
+# attention on the chunked flash-VJP path: 2048^2 > 1024^2), its padded 16
+# query heads over KV expanded to them, head_dim 64, chunks of 512
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_HEADS, TRAIN_HEAD_DIM, TRAIN_ATTN_CHUNK = 16, 64, 512
+TRAIN_STEPS = 4                        # the launcher's Trainer; the last profiled
+OOC_STEPS = 3                          # OOCTrainer, paged and resident
+OOC_PAGE = 1 << 20
+OOC_OVERSUB = 3                        # state bytes over page-buffer bytes
+OOC_WATCHDOG_S = 400
+# the training attention's dq, dk, dv against autograd through the dense
+# route: per row floored at the median row norm (grad_row_rel_err), and
+# over the whole tensor (||got - want|| / ||want||).  In bf16 the flash
+# backward's D = rowsum(do * o) uses the saved bf16 o, as the JAX package's
+# does, and the first causal rows' dq (2-8 keys) cancel: a row there is
+# 1.8e-2 off at [1, 2048, 4, 64] on the CPU and 5.3e-2 at [4, 2048, 16, 64]
+# on the H100, where the dense route's own bf16 dq is 2.3e-3 from the fp32
+# gradient.  So bf16 rows are held at 1e-1 and the whole tensor at 1e-2.
+# Outputs keep ROW_REL_TOL.
+TRAIN_GRAD_ROW_TOL = {"float32": 2e-5, "bfloat16": 1e-1}
+TRAIN_GRAD_TENSOR_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# Trainer against OOCTrainer: whole-tree and decomposed AdamW may round apart
+TRAIN_LOSS_REL_TOL = 1e-4
+TRAIN_PARAM_REL_TOL = 1e-4
 # flash_attention cases: (B, H, real heads, KVH, Sq, Sk, D, causal, window)
 FLASH_CASES = {
     "smollm_prefill": (1, 16, 9, 3, 32, 32, 64, True, None),
@@ -1334,6 +1389,304 @@ def phase_weight_pager(torch, K, cfg, params):
         uunmap(region)
 
 
+# ------------------------------------------------------------------ phase 8
+
+
+def train_attention(torch, flush):
+    """The training attention (``FlashVJPAttention``: chunked forward, flash
+    backward) at full-width smollm's heads and phase 8's length, bf16 and
+    fp32: its output and dq, dk, dv held per row against autograd through
+    the plain ``_dense_attention``; forward + backward timed beside the
+    dense route and ``scaled_dot_product_attention``'s."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import AttnSpec, FlashVJPAttention, _dense_attention
+
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, TRAIN_HEADS, TRAIN_HEAD_DIM
+    spec = AttnSpec(causal=True, impl="chunked", chunk_size=TRAIN_ATTN_CHUNK)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda").expand(b, s)
+    rng = np.random.default_rng(0)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32))
+                       .to("cuda", dt).requires_grad_(True) for _ in range(4))
+        do = do.detach()
+
+        def chunked():
+            o = FlashVJPAttention.apply(q, k, v, pos, pos, None, spec)
+            return (o, *torch.autograd.grad(o, (q, k, v), do))
+
+        def dense():
+            o = _dense_attention(q, k, v, spec, pos, pos, None)
+            return (o, *torch.autograd.grad(o, (q, k, v), do))
+
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            return (o, *torch.autograd.grad(o, (qt, kt, vt), dot))
+
+        got, want = chunked(), dense()
+        errs = {"o": max_row_rel_err(got[0], want[0], f"train attention o ({dtype})")}
+        unfloored, tensor = {}, {}
+        for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            errs[name], unfloored[name], tensor[name] = grad_row_rel_err(g, w)
+        del got, want
+        for name, err in errs.items():
+            tol = ROW_REL_TOL[dtype] if name == "o" else TRAIN_GRAD_ROW_TOL[dtype]
+            check(err <= tol, f"train attention {name} ({dtype}): row error {err} > {tol}")
+        for name, err in tensor.items():
+            check(err <= TRAIN_GRAD_TENSOR_TOL[dtype],
+                  f"train attention {name} ({dtype}): error {err} over the tensor")
+        times = {}
+        for key, fn in (("ms", chunked), ("dense_ms", dense), ("sdpa_ms", sdpa)):
+            times[key] = time_ms(torch, fn, flush, reps=5, warmup=1)[0]
+        out[dtype] = {"row_rel_err": errs, "grad_row_rel_err_unfloored": unfloored,
+                      "grad_tensor_rel_err": tensor, **times}
+        del q, k, v, do, qt, kt, vt
+        torch.cuda.empty_cache()
+    return {"shape": {"batch": b, "seq": s, "heads": h, "head_dim": d,
+                      "chunk": TRAIN_ATTN_CHUNK, "causal": True},
+            "forward_backward": out}
+
+
+def grad_row_rel_err(got, want):
+    """(largest ||got - want|| over a row divided by the larger of the row's
+    ||want|| and the median row norm of ``want``; the same without the
+    floor; ||got - want|| / ||want|| over the whole tensor).  A gradient row can be small by cancellation: dq of an early
+    causal row sums a few ``p * (dp - D)`` terms, and the flash backward
+    takes ``D = rowsum(do * o)`` from the saved ``o`` in the inputs'
+    dtype, as the JAX package's does; so in bf16 such a row is not held to
+    its own norm."""
+    diff = (got.float() - want.float()).norm(dim=-1).flatten()
+    norm = want.float().norm(dim=-1).flatten()
+    live = norm > 0
+    floored = (diff / norm.clamp(min=norm.median().item())).max().item()
+    return (floored, (diff[live] / norm[live]).max().item(),
+            (diff.norm() / norm.norm()).item())
+
+
+def ooc_geometry(cfg, page_size):
+    """(params pages, moments pages, largest leaf's pages) of the packed
+    training state, from the parameter shapes alone."""
+    import numpy as np
+
+    from repro_torch.interop import tree_flatten
+    from repro_torch.models.transformer import param_specs
+
+    n = [int(np.prod(sp.shape)) for sp in tree_flatten(param_specs(cfg))[0]]
+    pages = [max(1, -(-4 * x // page_size)) for x in n]
+    return sum(pages), sum(max(1, -(-8 * x // page_size)) for x in n), max(pages)
+
+
+def profiled(torch, fn):
+    """Run ``fn`` once under ``torch.profiler``: (its result, wall ms, device
+    busy ms, of it host<->device copy ms, the costliest device ops)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels, dev_us = device_kernels(prof)
+    check(kernels, "train profile: torch.profiler saw no device time")
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    copies = sum(dev_us(e) for e in kernels if "HtoD" in e.key or "DtoH" in e.key) / 1e3
+    top = [{"name": e.key[:80], "calls": e.count, "ms": dev_us(e) / 1e3}
+           for e in sorted(kernels, key=dev_us, reverse=True)[:8]]
+    return res, wall, busy, copies, top
+
+
+def rel_norm(a, b) -> float:
+    """||a - b|| / ||b|| over every leaf of two numpy trees together."""
+    import numpy as np
+
+    from repro_torch.interop import tree_flatten
+
+    num = den = 0.0
+    for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]):
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        num += float(np.sum((x - y) ** 2))
+        den += float(np.sum(y ** 2))
+    return (num / den) ** 0.5
+
+
+def phase_train(torch, K, CK):
+    """Full-width smollm-135m training at batch 4 x 2048 (phase 8).
+    Returns the page copies' launches and variants of the paged run."""
+    import faulthandler
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.interop import to_numpy, tree_flatten, tree_map
+    from repro_torch.launch import train as LT
+    from repro_torch.train.ooc import OOCTrainer, OOCTrainerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    attention = train_attention(torch, flush)
+    del flush
+    torch.cuda.empty_cache()
+
+    # 2. the resident Trainer, as the launcher builds and feeds it
+    shard = ROOT / "build" / "train_tokens.bin"
+    shard.parent.mkdir(parents=True, exist_ok=True)
+    args = LT.parse_args(["--arch", "smollm-135m", "--device", "cuda", "--seed", "0",
+                          "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                          "--seq", str(TRAIN_SEQ), "--data", str(shard)])
+    LT.write_synthetic_shard(shard, TRAIN_STEPS * TRAIN_BATCH * (TRAIN_SEQ + 1) + 1024,
+                             get_config(args.arch).vocab_size)
+    t0 = time.perf_counter()
+    trainer, loader, reader = LT.make_trainer(args, shard)
+    init_s = time.perf_counter() - t0
+    cfg, tcfg = trainer.cfg, trainer.tcfg.train
+    check(cfg.num_layers == 30 and cfg.d_model == 576 and cfg.remat == "full"
+          and cfg.attn_chunk == TRAIN_ATTN_CHUNK and cfg.vocab_size == 49152,
+          f"train: unexpected config {cfg.name}")
+    params0 = tree_map(to_numpy, trainer.params)      # the seed-0 weights, for 3-4
+    data, step_ms = [], []
+    try:
+        for i, batch in zip(range(TRAIN_STEPS), loader):
+            data.append(batch)
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            if i < TRAIN_STEPS - 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.fit([batch])
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            else:
+                peak = torch.cuda.max_memory_allocated()
+                _, prof_ms, busy_ms, _, top = profiled(torch, lambda: trainer.fit([batch]))
+    finally:
+        reader.close()
+        trainer.close()
+    losses = [h["loss"] for h in trainer.metrics_log]
+    check(trainer.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
+          f"train: {trainer.step} steps, {len(losses)} losses logged")
+    check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 0.5,
+          f"train: first loss {losses[0]} not within 0.5 of ln V = {np.log(cfg.vocab_size)}")
+    timed = sorted(step_ms[1:])
+    resident = {"init_s": init_s, "losses": losses, "step_ms": step_ms,
+                "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / (timed[len(timed) // 2] / 1e3),
+                "peak_memory_bytes": peak,
+                "profiled_step": {"wall_ms": prof_ms, "device_busy_ms": busy_ms,
+                                  "device_idle_share": 1 - busy_ms / prof_ms,
+                                  "top_device_ops": top}}
+    del trainer
+    torch.cuda.empty_cache()
+    batches = data[:OOC_STEPS]
+
+    # 3. OOCTrainer, resident then paged, from the same weights and batches
+    pt, mt, largest = ooc_geometry(cfg, OOC_PAGE)
+    p_slots = max(2 * largest, pt // OOC_OVERSUB)
+    ocfg = OOCTrainerConfig(page_size=OOC_PAGE, params_buffer_pages=p_slots,
+                            moments_buffer_pages=max(8, (pt + mt) // OOC_OVERSUB - p_slots),
+                            pool_pages=pt)
+    runs = {}
+    # a lease run the paging core cannot grant would retry forever
+    # (ROADMAP.md, Queue 3): end the run with every thread's stack instead
+    faulthandler.dump_traceback_later(OOC_WATCHDOG_S, exit=True)
+    try:
+        for mode in ("resident", "paged"):
+            tr = OOCTrainer(cfg, tcfg, ocfg, paged=mode == "paged", params=params0,
+                            device="cuda")
+            try:
+                if mode == "paged":
+                    K.reset_launch_counts()
+                    CK.reset_copy_variant_counts()
+                rec = {"losses": [], "step_s": [], "grad_s": [], "sweep_s": [],
+                       "sweep_copy_s": []}
+                for batch in batches:
+                    rec["losses"].append(tr.step(batch)["loss"])
+                    for key in ("step_s", "grad_s", "sweep_s", "sweep_copy_s"):
+                        rec[key].append(tr.stats["last_" + key])
+                if mode == "paged":
+                    launches, copy_variants = dict(K.launch_counts), copy_variants_now()
+                    rec.update(oversubscription=tr.oversubscription(),
+                               state_bytes=tr.state_bytes(), buffer_bytes=tr.buffer_bytes(),
+                               staging_copies=tr.staging_copies, chunk_pages=tr.chunk_pages,
+                               sweep_chunks=tr.stats["sweep_chunks"] // OOC_STEPS,
+                               sweep_pages=tr.stats["sweep_pages"] // OOC_STEPS,
+                               leaves=len(tr.source), launches=launches,
+                               copy_variants=copy_variants)
+                rec["state"] = tr.state_dict()
+                if mode == "paged":
+                    # one more step, profiled; then the grad phase's fetch alone
+                    _, wall, busy, copies, top = profiled(
+                        torch, lambda: tr.step(data[OOC_STEPS]))
+                    rec["profiled_step"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                            "copy_ms": copies, "top_device_ops": top,
+                                            "device_idle_share": 1 - busy / wall,
+                                            "kernel_idle_share": 1 - (busy - copies) / wall}
+                    tr.source.invalidate()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fetched = [tr.source[i] for i in range(len(tr.source))]
+                    torch.cuda.synchronize()
+                    fetch_s = time.perf_counter() - t0
+                    del fetched
+                    rec["grad_fetch"] = {"bytes": pt * OOC_PAGE, "s": fetch_s,
+                                         "gb_per_s": pt * OOC_PAGE / fetch_s / 1e9}
+                runs[mode] = rec
+            finally:
+                tr.close()
+                del tr
+                torch.cuda.empty_cache()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    res, pag = runs["resident"], runs["paged"]
+    equal = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(
+        tree_flatten(pag["state"])[0], tree_flatten(res["state"])[0]))
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    ooc = {"page_bytes": OOC_PAGE, "params_pages": pt, "moments_pages": mt,
+           "largest_leaf_pages": largest, "params_buffer_pages": ocfg.params_buffer_pages,
+           "moments_buffer_pages": ocfg.moments_buffer_pages, "pool_pages": pt,
+           "state_bitwise_equal": equal, "losses_equal": pag["losses"] == res["losses"],
+           "step_time_ratio": med(pag["step_s"]) / med(res["step_s"]),
+           **{mode: {k: v for k, v in rec.items() if k != "state"}
+              for mode, rec in runs.items()}}
+
+    # 4. the resident Trainer against the OOCTrainer, same weights and batches
+    tr = Trainer(cfg, TrainerConfig(train=tcfg, total_steps=OOC_STEPS, log_every=1),
+                 params=params0, device="cuda")
+    tr.fit(batches)
+    t_losses = [h["loss"] for h in tr.metrics_log]
+    t_params = tree_map(to_numpy, tr.params)
+    del tr
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(t_losses, pag["losses"]))
+    param_rel = rel_norm(t_params, pag["state"]["params"])
+    emit({"phase": "train", "arch": cfg.name, "dtype": cfg.compute_dtype,
+          "param_dtype": cfg.param_dtype, "remat": cfg.remat, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "attention": attention, "trainer": resident, "ooc": ooc,
+          "trainer_vs_ooc": {"losses": t_losses, "loss_max_rel_diff": loss_rel,
+                             "param_rel_norm_diff": param_rel,
+                             "params_bitwise_equal": param_rel == 0.0}})
+    check(equal and pag["losses"] == res["losses"],
+          "train: OOCTrainer paged and resident are not bitwise equal")
+    check(pag["staging_copies"] == 0, f"train: {pag['staging_copies']} staging copies")
+    want = OOC_STEPS * pag["leaves"]
+    for name in ("page_scatter", "page_gather"):
+        check(pag["launches"][name] == want,
+              f"train: {pag['launches'][name]} {name} launches, {want} expected "
+              f"(one per leaf fetched / read)")
+        check(pag["copy_variants"][name] == {"bulk": want, "generic": 0},
+              f"train: {name} launches by variant {pag['copy_variants'][name]}")
+    check(loss_rel <= TRAIN_LOSS_REL_TOL,
+          f"train: Trainer and OOCTrainer losses {loss_rel} apart (relative)")
+    check(param_rel <= TRAIN_PARAM_REL_TOL,
+          f"train: Trainer and OOCTrainer parameters {param_rel} apart (norm-relative)")
+    return pag["launches"], pag["copy_variants"]
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1431,6 +1784,10 @@ def main() -> int:
     del qwen2
     torch.cuda.empty_cache()
 
+    # 8. training: full-width smollm-135m, the resident Trainer and the
+    # out-of-core OOCTrainer (its grad phase streams through the page copies)
+    train_launches, train_copy_variants = phase_train(torch, K, CK)
+
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
     rows = []
@@ -1441,7 +1798,8 @@ def main() -> int:
                "replaces": REPLACES[name], "launches": counted[name],
                "launches_by_path": {"serve": launches[name],
                                     "long_prompt": long_launches[name],
-                                    "weight_pager": weight_launches[name]},
+                                    "weight_pager": weight_launches[name],
+                                    "train": train_launches[name]},
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
@@ -1458,7 +1816,8 @@ def main() -> int:
             row["parent_ms"] = s["parent_ms"]
             row["copy_variants"] = {"serve": copy_variants[name],
                                     "long_prompt": long_copy_variants[name],
-                                    "weight_pager": weight_copy_variants[name]}
+                                    "weight_pager": weight_copy_variants[name],
+                                    "train": train_copy_variants[name]}
             # the weight path's call: one layer of 47 2 MiB pages, [P, E]
             w = next(r for r in kstats["weight_copies"] if r["name"] == name)
             row["weight_pager_case"] = {k: w[k] for k in (

@@ -6,7 +6,10 @@ Two rules the parity tests and later slices depend on:
   ``jax.tree_util`` does; ``torch.utils._pytree`` keeps insertion order
   instead (``{'b': 1, 'a': 2}`` flattens to ``[2, 1]`` under JAX and
   ``[1, 2]`` under torch).  Packed images and parameter init both walk
-  trees in this order.  ``None`` is an empty subtree, as in JAX.
+  trees in this order.  ``None`` is an empty subtree, as in JAX.  A
+  ``NamedTuple`` is a node of its own: its fields flatten in field order
+  (JAX's order) and it comes back as the same type, so an optimizer state
+  keeps its field names through a tree map or a checkpoint restore.
 * **bf16.** ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16`` arrays, so
   bf16 crosses as its bit pattern: ``.view(np.uint16)`` on the numpy side,
   ``.view(torch.bfloat16)`` on the torch side (and back).
@@ -19,7 +22,7 @@ from typing import Any, Callable, List, Tuple
 import numpy as np
 import torch
 
-# treedef nodes: ("leaf",) | ("none",) | (kind, keys_or_len, children)
+# treedef nodes: ("leaf",) | ("none",) | (kind, keys_or_len_or_type, children)
 
 
 def tree_flatten(tree: Any) -> Tuple[List[Any], tuple]:
@@ -32,6 +35,8 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], tuple]:
         if isinstance(node, dict):
             keys = sorted(node)
             return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
+        if isinstance(node, tuple) and hasattr(type(node), "_fields"):
+            return ("namedtuple", type(node), tuple(walk(c) for c in node))
         if isinstance(node, (list, tuple)):
             kind = "list" if isinstance(node, list) else "tuple"
             return (kind, len(node), tuple(walk(c) for c in node))
@@ -54,6 +59,8 @@ def tree_unflatten(treedef: tuple, leaves: List[Any]) -> Any:
         children = [build(c) for c in td[2]]
         if kind == "dict":
             return dict(zip(td[1], children))
+        if kind == "namedtuple":
+            return td[1](*children)
         return children if kind == "list" else tuple(children)
 
     out = build(treedef)
@@ -62,9 +69,17 @@ def tree_unflatten(treedef: tuple, leaves: List[Any]) -> Any:
     return out
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` (and, leaf by leaf, of each tree
+    in ``rest``, which must have the same structure)."""
     leaves, td = tree_flatten(tree)
-    return tree_unflatten(td, [fn(x) for x in leaves])
+    others = []
+    for other in rest:
+        o_leaves, o_td = tree_flatten(other)
+        if o_td != td:
+            raise ValueError("tree_map: trees of different structure")
+        others.append(o_leaves)
+    return tree_unflatten(td, [fn(*xs) for xs in zip(leaves, *others)])
 
 
 def from_numpy(arr: np.ndarray, device="cpu") -> torch.Tensor:

@@ -1,13 +1,14 @@
 """Core transformer layers: norms, RoPE, GQA attention, MLPs.
 
-Port of ``repro/models/layers.py`` for the dense decoder path (no M-RoPE,
-no training VJP).  Attention implementations, as in the JAX package:
+Port of ``repro/models/layers.py`` for the dense decoder path (no
+M-RoPE).  Attention implementations, as in the JAX package:
 
   dense        full [Sq, Sk] score matrix + mask — exact baseline for short
                sequences (the serving prefill buckets).
   chunked      online softmax over KV chunks (a Python loop where JAX used
-               ``lax.scan``); ``causal_skip=True`` additionally skips fully
-               masked KV chunks per Q chunk.
+               ``lax.scan``) with the flash-style backward of
+               :class:`FlashVJPAttention`; ``causal_skip=True`` instead
+               skips fully masked KV chunks per Q chunk (forward only).
 
 These are the plain paths.  A prefill over the default positions
 ``0..S-1`` runs its attention in the ``flash_attention`` kernel instead
@@ -126,23 +127,34 @@ def _dense_attention(q, k, v, spec, q_pos, k_pos, k_valid):
     return o.reshape(b, sq, h, d).to(q.dtype)
 
 
-def _chunked_attention(q, k, v, spec, q_pos, k_pos, k_valid):
-    """Online softmax over KV chunks (the JAX package's ``_chunked_forward``
-    and, with ``causal_skip``, its triangular schedule)."""
-    b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
+def _pad_chunks(k, v, spec, k_pos, k_valid):
+    """KV padded to a chunk multiple with invalid entries -> (k, v, k_pos,
+    k_valid, chunk)."""
+    b, sk = k.shape[0], k.shape[1]
     ck = min(spec.chunk_size, sk)
     if k_valid is None:
         k_valid = torch.ones((b, sk), dtype=torch.bool, device=k.device)
-    if sk % ck:                         # pad KV to a chunk multiple, invalid
+    if sk % ck:
         pad = ck - sk % ck
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=2**30)
         k_valid = F.pad(k_valid, (0, pad), value=False)
+    return k, v, k_pos, k_valid, ck
+
+
+def _chunked_attention(q, k, v, spec, q_pos, k_pos, k_valid):
+    """Online softmax over KV chunks: the JAX package's flash-VJP attention
+    (:class:`FlashVJPAttention`) and, with ``causal_skip``, its triangular
+    schedule (forward only, as there)."""
+    if not spec.causal_skip:
+        return FlashVJPAttention.apply(q, k, v, q_pos, k_pos, k_valid, spec)
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    k, v, k_pos, k_valid, ck = _pad_chunks(k, v, spec, k_pos, k_valid)
     n_chunks = k.shape[1] // ck
     qg = _group(q, kvh).float()
-    if spec.causal_skip and spec.causal and sq > 1:
+    if spec.causal and sq > 1:
         # triangular schedule: each Q chunk sees only the KV chunks that can
         # be unmasked for it (ascending, chunk-aligned positions)
         cq = min(spec.chunk_size, sq)
@@ -153,14 +165,15 @@ def _chunked_attention(q, k, v, spec, q_pos, k_pos, k_valid):
             lo = max(0, (qi * cq - spec.window) // ck) if spec.window is not None else 0
             sl = slice(qi * cq, (qi + 1) * cq)
             outs.append(_online_softmax(qg[:, sl], q_pos[:, sl], k, v, k_pos,
-                                        k_valid, spec, ck, range(lo, hi)))
+                                        k_valid, spec, ck, range(lo, hi))[0])
         return torch.cat(outs, dim=1).to(q.dtype)
     return _online_softmax(qg, q_pos, k, v, k_pos, k_valid, spec, ck,
-                           range(n_chunks)).to(q.dtype)
+                           range(n_chunks))[0].to(q.dtype)
 
 
 def _online_softmax(qg, q_pos, k, v, k_pos, k_valid, spec, ck, chunks):
-    """Flash recurrence over the given KV chunks -> [B, Sq, H, D] fp32."""
+    """Flash recurrence over the given KV chunks -> (o [B, Sq, H, D] fp32,
+    m, l [B, KVH, rep, Sq] fp32: the running max and normaliser)."""
     b, sq, kvh, rep, d = qg.shape
     scale = 1.0 / math.sqrt(d)
     m = torch.full((b, kvh, rep, sq), NEG_INF, dtype=torch.float32, device=qg.device)
@@ -181,7 +194,83 @@ def _online_softmax(qg, q_pos, k, v, k_pos, k_valid, spec, ck, chunks):
             "bgrqk,bkgd->bgrqd", p.to(vc.dtype).float(), vc.float())
         m = m_new
     o = acc / torch.clamp(l[..., None], min=1e-37)
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, kvh * rep, d)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, kvh * rep, d), m, l
+
+
+def _chunked_forward(q, k, v, spec, q_pos, k_pos, k_valid):
+    """Every KV chunk through the recurrence -> (o [B,Sq,H,D] in q's dtype,
+    m, l)."""
+    kvh = k.shape[2]
+    k, v, k_pos, k_valid, ck = _pad_chunks(k, v, spec, k_pos, k_valid)
+    o, m, l = _online_softmax(_group(q, kvh).float(), q_pos, k, v, k_pos, k_valid,
+                              spec, ck, range(k.shape[1] // ck))
+    return o.to(q.dtype), m, l
+
+
+def _chunked_backward(q, k, v, spec, q_pos, k_pos, k_valid, o, m, l, do):
+    """The flash backward: probabilities recomputed chunk by chunk from the
+    saved ``(m, l)`` -> (dq, dk, dv) in the inputs' dtypes."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    sk_orig = k.shape[1]
+    k, v, k_pos, k_valid, ck = _pad_chunks(k, v, spec, k_pos, k_valid)
+    rep = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    qg = _group(q, kvh).float()                                   # [B,Sq,g,r,D]
+    og = _group(o, kvh).float()
+    dog = _group(do, kvh).float()
+    l_safe = torch.clamp(l, min=1e-37)                            # [B,g,r,Sq]
+    D = torch.einsum("bqgrd,bqgrd->bgrq", dog, og)                # rowsum(do*o)
+    dq = torch.zeros((b, sq, kvh, rep, d), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for c in range(k.shape[1] // ck):
+        sl = slice(c * ck, (c + 1) * ck)
+        kc, vc = k[:, sl].float(), v[:, sl].float()
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kc) * scale
+        s = s + _mask_bias(q_pos, k_pos[:, sl], spec, k_valid[:, sl])[:, None, None]
+        p = torch.exp(s - m[..., None]) / l_safe[..., None]       # normalised
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vc)
+        ds = p * (dp - D[..., None])
+        dq = dq + torch.einsum("bgrqk,bkgd->bqgrd", ds, kc) * scale
+        dks.append(torch.einsum("bgrqk,bqgrd->bkgd", ds, qg) * scale)
+        dvs.append(torch.einsum("bgrqk,bqgrd->bkgd", p, dog))
+    dk = torch.cat(dks, dim=1)[:, :sk_orig]
+    dv = torch.cat(dvs, dim=1)[:, :sk_orig]
+    return dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashVJPAttention(torch.autograd.Function):
+    """Chunked attention with a flash-style backward (the JAX package's
+    ``_flash_vjp_attention``, a ``jax.custom_vjp``).
+
+    Plain autograd through the online-softmax loop would save every KV
+    chunk's fp32 probabilities, O(Sq·Sk) per head.  The forward saves only
+    ``(q, k, v, positions, o, m, l)`` and the backward recomputes the
+    probabilities chunk by chunk, the FlashAttention recurrence:
+
+        D    = rowsum(do ⊙ o)
+        P_c  = exp(s_c − m) / l
+        ds_c = P_c ⊙ (do·v_cᵀ − D)
+        dq  += ds_c·k_c·scale;  dk_c = ds_cᵀ·q·scale;  dv_c = P_cᵀ·do
+
+    Plain PyTorch, as the JAX package computes it outside any Pallas
+    kernel.  ``apply(q, k, v, q_pos, k_pos, k_valid, spec)``; positions and
+    validity get no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, k_valid, spec):
+        o, m, l = _chunked_forward(q, k, v, spec, q_pos, k_pos, k_valid)
+        ctx.spec = spec
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, k_valid, o, m, l)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos, k_valid, o, m, l = ctx.saved_tensors
+        dq, dk, dv = _chunked_backward(q, k, v, ctx.spec, q_pos, k_pos, k_valid,
+                                       o, m, l, do)
+        return dq, dk, dv, None, None, None, None
 
 
 def decode_attention(q, k_cache, v_cache, k_positions, cur_pos,

@@ -6,6 +6,9 @@ Entry points (functions of (cfg, params, ...), as in the JAX package):
   param_specs / init_params       parameter tree (segments stacked [count, ...])
   embed_tokens / lm_logits        token embedding and tied/untied LM head
   init_cache                      contiguous cache for (batch, seq_len)
+  forward_train                   full-sequence forward for the loss; with
+                                  ``remat="full"`` each layer is recomputed
+                                  in the backward (``torch.utils.checkpoint``)
   prefill                         writes the cache, returns last-position hidden;
                                   without explicit ``positions`` its attention
                                   runs the flash_attention kernel
@@ -25,6 +28,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device, torch_dtype
 from ..configs.base import ModelConfig, Segment
@@ -110,14 +114,26 @@ def _run_segment(cfg: ModelConfig, seg: Segment, seg_params: dict, x,
                  ctx: BlockCtx, cache_seg: Optional[dict]):
     """Run one homogeneous segment layer by layer.  cache_seg holds
     [count, ...] tensors or is None.  Entries a block updated in place come
-    back as the segment's own tensors; new per-layer entries are stacked."""
+    back as the segment's own tensors; new per-layer entries are stacked.
+    In training with ``cfg.remat == "full"`` each layer runs under
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of the
+    scan body): only its input is kept, and its forward runs again in the
+    backward."""
     old_layers: List[dict] = []
     new_layers: List[dict] = []
+    remat = ctx.mode == "train" and cfg.remat == "full"
     for i in range(seg.count):
         layer_p = tree_map(lambda a: a[i], seg_params)
         cache_l = None if cache_seg is None else {k: t[i] for k, t in cache_seg.items()}
         lctx = dataclasses.replace(ctx, cache=cache_l)
-        x, new_cache, _ = block_apply(cfg, seg, layer_p, x, lctx)
+        if remat:
+            # the layer's own tree and context, bound now: the recompute
+            # runs in the backward, after this loop has moved on
+            x = checkpoint(lambda x_, p_=layer_p, c_=lctx: block_apply(cfg, seg, p_, x_, c_)[0],
+                           x, use_reentrant=False)
+            new_cache = None
+        else:
+            x, new_cache, _ = block_apply(cfg, seg, layer_p, x, lctx)
         old_layers.append(cache_l)
         new_layers.append(new_cache)
     if cache_seg is None or new_layers[0] is None:
@@ -129,6 +145,33 @@ def _run_segment(cfg: ModelConfig, seg: Segment, seg_params: dict, x,
         else:
             out[key] = torch.stack([new[key] for new in new_layers])
     return x, out
+
+
+# ------------------------------------------------------------------ forward
+
+
+def forward_train(cfg: ModelConfig, params: dict, batch: dict
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward -> (hidden [B,S,d] after the final norm, aux).
+
+    ``aux`` holds the MoE losses in the JAX package; the dense decoder has
+    none, so it is empty.  Attention takes the plain dense or chunked path
+    (``models/layers.py``), whose chunked form has the flash-style
+    backward; the ``flash_attention`` kernel has no backward and is not
+    used here.
+    """
+    _check_supported(cfg)
+    params = cast_params(cfg, params)
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params, tokens)
+    b, s = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    ctx = BlockCtx(mode="train", positions=positions)
+    for i, seg in enumerate(cfg.decoder_plan()):
+        x, _ = _run_segment(cfg, seg, params["segments"][i], x, ctx, None)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), {}
 
 
 # -------------------------------------------------------------------- cache

@@ -1,7 +1,8 @@
-"""PyTorch port: its copies of the UMap paging core and of telemetry.
+"""PyTorch port: its copies of the UMap paging core, of telemetry and of
+the data pipeline.
 
-``repro_torch/core/**`` and ``repro_torch/telemetry/**`` are whole-file
-copies of the JAX package's pure-Python modules (the port imports nothing of
+``repro_torch/core/**``, ``repro_torch/telemetry/**`` and
+``repro_torch/data/pipeline.py`` are whole-file copies of the JAX package's pure-Python modules (the port imports nothing of
 ``repro``).  Each must equal its source up to the package name, and the
 copies must page the same bytes as the reference: the same store read
 through a region, leased, and tiered, gives the same bytes and counters.
@@ -23,7 +24,7 @@ TELEMETRY = ["__init__", "exporter", "metrics", "registry"]
 COLLECTORS = ["__init__", "base", "leases", "pager", "process", "resilience", "serve",
               "tiering", "train"]
 COPIES = ([f"core/{n}.py" for n in CORE] + [f"telemetry/{n}.py" for n in TELEMETRY]
-          + [f"telemetry/collectors/{n}.py" for n in COLLECTORS])
+          + [f"telemetry/collectors/{n}.py" for n in COLLECTORS] + ["data/pipeline.py"])
 
 
 @pytest.mark.parametrize("path", COPIES)

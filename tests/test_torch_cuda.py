@@ -714,3 +714,120 @@ class TestGatherCompletesUnderLock:
             assert pager.stats["fills"] >= len(leaves)
         finally:
             uunmap(region)
+
+
+# ------------------------------------------------------------------ training
+
+
+def grad_row_rel_err(got, want):
+    """(largest ||got - want|| over a row divided by the larger of the row's
+    ||want|| and the median row norm, ||got - want|| / ||want|| over the
+    tensor).  A bf16 gradient row can be small by cancellation; see
+    ``chip_smoke.py``'s TRAIN_GRAD_ROW_TOL."""
+    diff = (got.float() - want.float()).norm(dim=-1).flatten()
+    norm = want.float().norm(dim=-1).flatten()
+    return ((diff / norm.clamp(min=norm.median().item())).max().item(),
+            (diff.norm() / norm.norm()).item())
+
+
+TRAIN_GRAD_ROW_TOL = dict(float32=2e-5, bfloat16=1e-1)
+TRAIN_GRAD_TENSOR_TOL = dict(float32=2e-5, bfloat16=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_vjp_attention_matches_dense_autograd(cuda, dtype):
+    """The training attention's output and dq, dk, dv at a ragged length
+    (1100 = 2 chunks of 512 + 76) against autograd through the dense route."""
+    from repro_torch.models.layers import AttnSpec, FlashVJPAttention, _dense_attention
+
+    rng = np.random.default_rng(0)
+    b, s, h, d = 2, 1100, 16, 64
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
+                   .to(cuda, TORCH_DTYPE[dtype]).requires_grad_(True) for _ in range(4))
+    do = do.detach()
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s)
+    spec = AttnSpec(causal=True, impl="chunked", chunk_size=512)
+    o = FlashVJPAttention.apply(q, k, v, pos, pos, None, spec)
+    got = (o, *torch.autograd.grad(o, (q, k, v), do))
+    o = _dense_attention(q, k, v, spec, pos, pos, None)
+    want = (o, *torch.autograd.grad(o, (q, k, v), do))
+    assert max_row_rel_err(got[0], want[0]) <= ROW_REL_TOL[dtype]
+    for g, w in zip(got[1:], want[1:]):
+        row, tensor = grad_row_rel_err(g, w)
+        assert row <= TRAIN_GRAD_ROW_TOL[dtype] and tensor <= TRAIN_GRAD_TENSOR_TOL[dtype]
+
+
+def test_adamw_elementwise_is_chunk_invariant_on_the_card(cuda):
+    from repro_torch.train.optimizer import AdamWConfig, adamw_elementwise, update_scalars
+
+    rng = np.random.default_rng(1)
+    n = 3 * 262144 + 1001
+    p, g, m = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    v = torch.from_numpy(np.abs(rng.standard_normal(n)).astype(np.float32) * 1e-3).to(cuda)
+    cfg = AdamWConfig(warmup_steps=10)
+    scalars = update_scalars(cfg, torch.tensor(3, dtype=torch.int32, device=cuda),
+                             torch.tensor(2.5, device=cuda))
+    whole = adamw_elementwise(cfg, p, g, m, v, *scalars)
+    bounds = [0, 1, 262144, 262145, 2 * 262144 + 7, n]
+    parts = [adamw_elementwise(cfg, *(t[lo:hi] for t in (p, g, m, v)), *scalars)
+             for lo, hi in zip(bounds[:-1], bounds[1:])]
+    for i, w in enumerate(whole):
+        assert torch.equal(torch.cat([part[i] for part in parts]), w)
+
+
+def test_ooc_trainer_paged_is_bitwise_resident_on_the_card(cuda):
+    """The tiny model of tests/test_train_ooc.py, 3 steps at 2x
+    oversubscription: paged (leaves through the page copies) and resident
+    state bitwise equal, every copy one bulk launch per leaf."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.interop import tree_flatten
+    from repro_torch.train.ooc import OOCTrainer, OOCTrainerConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg = ModelConfig(name="tiny", family="dense", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=4, head_dim=16, d_ff=128, vocab_size=256)
+    rng = np.random.default_rng(0)
+    batches = [{k: rng.integers(0, 256, (2, 16)).astype(np.int32) for k in ("tokens", "labels")}
+               for _ in range(3)]
+    out = {}
+    for paged in (False, True):
+        kw = dict(params_buffer_pages=81, moments_buffer_pages=162) if paged else {}
+        tr = OOCTrainer(cfg, TrainConfig(), OOCTrainerConfig(page_size=4096, **kw),
+                        paged=paged, device=cuda)
+        try:
+            K.reset_launch_counts()
+            copy_kernel.reset_copy_variant_counts()
+            losses = [tr.step(b)["loss"] for b in batches]
+            out[paged] = (losses, tr.state_dict(), dict(K.launch_counts),
+                          {n: dict(c) for n, c in copy_kernel.copy_variant_counts.items()},
+                          tr.staging_copies, len(tr.source) if paged else 0)
+        finally:
+            tr.close()
+    (rl, rs, _, _, _, _), (pl, pstate, launches, variants, staging, leaves) = out[False], out[True]
+    assert pl == rl and staging == 0
+    for a, b in zip(tree_flatten(pstate)[0], tree_flatten(rs)[0]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    for name in ("page_scatter", "page_gather"):
+        assert launches[name] == 3 * leaves
+        assert variants[name] == {"bulk": 3 * leaves, "generic": 0}
+
+
+def test_trainer_step_remat_full_is_bitwise_remat_none(cuda):
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.interop import tree_flatten
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_smoke_config("smollm-135m").replace(compute_dtype="bfloat16")
+    rng = np.random.default_rng(2)
+    t = rng.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)
+    batch = {"tokens": t[:, :-1].copy(), "labels": t[:, 1:].copy()}
+    states = []
+    for remat in ("none", "full"):
+        tr = Trainer(cfg.replace(remat=remat), TrainerConfig(total_steps=1, log_every=1),
+                     device=cuda)
+        tr.fit([batch])
+        states.append((tr.metrics_log[0]["loss"], tree_flatten(tr.state())[0]))
+    assert states[0][0] == states[1][0]
+    for a, b in zip(states[0][1], states[1][1]):
+        assert a == b if isinstance(a, int) else torch.equal(a, b)

@@ -2,7 +2,8 @@
 
 * importing ``repro_torch`` and every submodule loads neither ``jax`` nor any
   ``repro`` module;
-* trees flatten in ``jax.tree_util`` order (dict keys sorted);
+* trees flatten in ``jax.tree_util`` order (dict keys sorted), and a
+  ``NamedTuple`` (``AdamWState``) comes back as its own type;
 * bf16 crosses numpy <-> torch bit-exactly;
 * ``params_from_numpy`` keeps the reference tree's keys, shapes and dtypes;
 * entry points default to the card and raise when there is none.
@@ -58,7 +59,12 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "repro_torch.kernels.flash_attention.kernel",
                 "repro_torch.kernels.page_gather.ops", "repro_torch.kvcache.paged_kv",
                 "repro_torch.models.transformer", "repro_torch.serve.engine",
-                "repro_torch.launch.serve", "repro_torch.core.pattern"):
+                "repro_torch.launch.serve", "repro_torch.core.pattern",
+                "repro_torch.train.optimizer", "repro_torch.train.loss",
+                "repro_torch.train.train_step", "repro_torch.train.trainer",
+                "repro_torch.train.paged_state", "repro_torch.train.ooc",
+                "repro_torch.ckpt.checkpoint", "repro_torch.data.pipeline",
+                "repro_torch.launch.train"):
         assert mod in res["imported"], f"{mod} was not walked"
 
 
@@ -70,6 +76,28 @@ def test_flatten_order_matches_jax_tree_util():
     assert interop.tree_unflatten(treedef, leaves) == tree
     # torch's own pytree keeps insertion order: the reason interop exists
     assert interop.tree_flatten({"b": 1, "a": 2})[0] == [2, 1]
+
+
+def test_namedtuple_keeps_its_type_in_jax_leaf_order():
+    import repro.train.optimizer as ropt
+    from repro_torch.train.optimizer import AdamWState
+
+    m = {"w": torch.ones(2), "b": [torch.zeros(3)]}
+    state = AdamWState(step=torch.tensor(3, dtype=torch.int32), m=m,
+                       v=interop.tree_map(lambda t: t + 1, m))
+    leaves, treedef = interop.tree_flatten({"opt": state, "step": 3})
+    back = interop.tree_unflatten(treedef, leaves)
+    assert type(back["opt"]) is AdamWState and back["opt"].m["b"][0] is m["b"][0]
+    mapped = interop.tree_map(lambda t: t, state)
+    assert type(mapped) is AdamWState and int(mapped.step) == 3
+    # the same tree in the JAX package flattens to the same leaves, in order
+    ref = {"opt": ropt.AdamWState(step=np.asarray(3, np.int32),
+                                  m={"w": np.ones(2), "b": [np.zeros(3)]},
+                                  v={"w": np.full(2, 2.0), "b": [np.ones(3)]}), "step": 3}
+    want = jax.tree_util.tree_leaves(ref)
+    assert len(leaves) == len(want)
+    for got, w in zip(leaves, want):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(w))
 
 
 def test_param_tree_flatten_order_matches_reference_init(ref_params):
