@@ -13,6 +13,11 @@ Phases, each printing one JSON line:
             per sequence) and at qwen2-1.5b's long-context decode (q
             [4,16,128], 12 real heads over 2 KV heads, 264 pages per
             sequence, phase 6's first-wave lengths 3637/2981/2594/1853):
+            and with a sliding window at phase 9's shapes (hymba-1.5b: q
+            [4,32,64], 25 real heads over 5, window 1024, lengths
+            700/1024/1900/2048; mixtral-8x7b: q [4,32,128] over 8, window
+            4096, lengths 2000/4096/4616/4800; the bound counts only the
+            visible keys, SDPA is masked to them):
             paged_attention in bf16 and fp32 within the
             JAX package's kernel-test tolerances (fp32 2e-5, bf16 3e-2) and
             each real head's output row within 1e-2 (bf16) / 2e-5 (fp32) of
@@ -34,9 +39,12 @@ Phases, each printing one JSON line:
             [1,16,4096,128], 12 real heads over 2) and its 1024-token one
             (phase 7's shape), a 256-token sliding
             window, a ragged non-causal 200 x 333 case, llama3-8b's heads at
-            4096 tokens (q [1,32,4096,128] over 8 KV heads) and smollm's at
-            2048 (D 64), its inputs strided views as the model hands them
-            over, and besides each output row within 1e-2 (bf16) / 2e-5
+            4096 tokens (q [1,32,4096,128] over 8 KV heads), smollm's at
+            2048 (D 64), and phase 9's windowed prefills (hymba-1.5b's heads
+            over 1600 prompt + 128 meta tokens, window 1024; mixtral-8x7b's
+            4600-token prompt, window 4096), its inputs strided views as
+            the model hands them over, and besides each output row within
+            1e-2 (bf16) / 2e-5
             (fp32) of the plain row's norm.  Where bf16 takes the hopper
             variant (TMA + wgmma), the generic kernel is checked and timed
             beside it.  Time kernel, plain
@@ -139,12 +147,45 @@ Phases, each printing one JSON line:
             fresh ``Trainer`` on the same 3 batches: losses within 1e-4
             relative of the paged ``OOCTrainer``'s, parameters within 1e-4
             of their norm.
+9. zoo      the MoE and hybrid decoders, and the dense models run so far
+            only as kernel shapes, served through ``ServeEngine`` at full
+            width (``ZOO``; bf16, random weights from seed 0 made on the
+            card): hymba-1.5b (nothing cut: 32 layers, d_model 1600, 25 heads
+            padded to 32 over 5, D 64, 128 meta tokens, window 1024 but on
+            layers 0/16/31, Mamba heads of d_inner 3200), mixtral-8x7b (8 of
+            32 layers: 8 experts top-2, window 4096), phi3.5-moe (4 of 32
+            layers: 16 experts top-2), llama3-8b and deepseek-7b (nothing
+            cut).  Each: an fp32 check first where ``ZOO`` has one
+            (hymba-1.5b whole, 1300 tokens; mixtral-8x7b at 2 layers, 4200
+            tokens, past its window; one lane, bucket 1, x 8 new): greedy
+            tokens equal to the port's unbatched contiguous decode, whose
+            positions count the meta tokens.  Then the bf16 traffic, 4-8
+            prompts of 64-4600 tokens x 16 new, batch 4, page 16, plus a
+            registered prefix and a request of it + 1 token (a decode
+            copy-on-write), with the launch counts zeroed just before and
+            read just after: every kernel launched, paged_attention with the
+            window where the model has one (and without it on hymba's global
+            layers), every flash_attention launch hopper, the page copies
+            bulk, at most one launch per pool of each attention segment for
+            each install and copy-on-write (``LAUNCH_CAPS``); drained, no
+            expiry, no leaked page, tokens in the vocabulary.  Prints
+            prefill ms per request,
+            decode tok/s, peak memory, the MoE models' dropped share of
+            expert assignments, a profiled decode step with 4 live lanes
+            (for MoE also the expert FFNs' and the dispatch's device ms), for
+            hymba a profiled 1899-token prefill with the selective scan's
+            device ms and share, and, where ``ZOO`` says so, the bf16 tokens
+            of the shortest request within tolerance of a teacher-forced
+            contiguous decode's maximum logit.  Each model is freed before
+            the next.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
 3.35 TB/s or operations over the peak rate, whichever is larger; for
 flash_attention also the variant taken and each variant's time; for the
-page copies the parent call pattern's time and the launches by variant), the card's
+page copies the parent call pattern's time and the launches by variant;
+phase 9's launches by model, and for paged_attention and flash_attention its
+windowed phase-2 cases with the launches of the model each stands for), the card's
 name and power limit from nvidia-smi, and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises before that line (non-zero exit).  Without a
 CUDA card, or without the rest of the repository beside it, it exits
@@ -198,7 +239,11 @@ COPY_MAIN_CASE = {"page_gather": "smollm_cow_gather", "page_scatter": "smollm_in
 # and copy-on-write (serve: 17 prefills + a prefix + a copy-on-write;
 # long prompt: 5 prefills, one fully shared, + a prefix + a copy-on-write)
 LAUNCH_CAPS = {"serve": {"page_scatter": 38, "page_gather": 2},
-               "long_prompt": {"page_scatter": 12, "page_gather": 2}}
+               "long_prompt": {"page_scatter": 12, "page_gather": 2},
+               # phase 9, hymba: 9 prefills + a prefix + a copy-on-write,
+               # each into the pools of its 5 attention segments (the
+               # global layers 0, 16, 31 split the stack)
+               "zoo": {"page_scatter": 110, "page_gather": 10}}
 # the weight pager's copies (phase 7's shapes): one qwen2-1.5b layer of 47
 # 2 MiB bf16 pages into / out of a device pool of 8 layers
 WEIGHT_COPY_CASES = {"qwen2_weight_install": "page_scatter",
@@ -236,6 +281,34 @@ TRAIN_GRAD_TENSOR_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # Trainer against OOCTrainer: whole-tree and decomposed AdamW may round apart
 TRAIN_LOSS_REL_TOL = 1e-4
 TRAIN_PARAM_REL_TOL = 1e-4
+# phase 9: the MoE and hybrid decoders, and the dense ones run so far only as
+# kernel shapes, served at full width (bf16, random weights from seed 0 made
+# on the card).  Per model: decoder layers kept (None: all), the traffic's
+# prompt lengths (numpy seed 0 tokens; x ZOO_NEW_TOKENS, batch 4, page 16,
+# prefill bucket 32), the registered prefix (a request of it + 1 token
+# copies a shared page on its first decode write), the pool, the fp32 check
+# (layers kept, prompt tokens; x 8 new), and whether the bf16 tokens are held
+# to contiguous decode's top logit (not an MoE model's: expert capacity
+# depends on how many tokens share a dispatch, so batched serving may
+# legitimately route otherwise than unbatched decode)
+ZOO = {
+    # 32 layers, d 1600, 25 heads padded to 32 over 5, D 64, 128 meta tokens,
+    # window 1024 but on layers 0, 16, 31: prompts past 896 tokens bind it
+    "hymba-1.5b": dict(layers=None, lens=[64, 420, 800, 960, 1150, 1400, 1650, 1900],
+                       prefix=500, pages=1280, pps=136, fp32=(None, 1300), bf16_check=True),
+    # 8 of 32 layers (2.90 GB a layer in bf16), 8 experts top-2, window 4096
+    "mixtral-8x7b": dict(layers=8, lens=[4600, 300, 900, 1500, 2200, 3000], prefix=300,
+                         pages=1600, pps=300, fp32=(2, 4200), bf16_check=False),
+    # 4 of 32 layers, 16 experts top-2, no window
+    "phi3.5-moe-42b-a6.6b": dict(layers=4, lens=[600, 1100, 1500, 2000], prefix=300,
+                                 pages=700, pps=136, fp32=None, bf16_check=False),
+    # the dense models, nothing cut
+    "llama3-8b": dict(layers=None, lens=[1024, 1400, 1700, 2048], prefix=300, pages=700,
+                      pps=136, fp32=None, bf16_check=True),
+    "deepseek-7b": dict(layers=None, lens=[1100, 1300, 1600, 2000], prefix=300, pages=700,
+                        pps=136, fp32=None, bf16_check=True),
+}
+ZOO_NEW_TOKENS = 16
 # flash_attention cases: (B, H, real heads, KVH, Sq, Sk, D, causal, window)
 FLASH_CASES = {
     "smollm_prefill": (1, 16, 9, 3, 32, 32, 64, True, None),
@@ -245,7 +318,15 @@ FLASH_CASES = {
     "ragged_200x333": (2, 16, 12, 2, 200, 333, 128, False, None),
     "llama3_4096": (1, 32, 32, 8, 4096, 4096, 128, True, None),
     "smollm_2048": (1, 16, 9, 3, 2048, 2048, 64, True, None),
+    # phase 9's windowed prefills: hymba-1.5b's heads (25 of 32 over 5, D 64)
+    # over 1600 prompt tokens + 128 meta tokens, window 1024; mixtral-8x7b's
+    # 4600-token prompt, window 4096
+    "hymba_1728_w1024": (1, 32, 25, 5, 1728, 1728, 64, True, 1024),
+    "mixtral_4600_w4096": (1, 32, 32, 8, 4600, 4600, 128, True, 4096),
 }
+# the phase-2 cases at phase 9's shapes, and the model whose run they stand for
+ZOO_PAGED_CASES = {"hymba_window": "hymba-1.5b", "mixtral_window": "mixtral-8x7b"}
+ZOO_FLASH_CASES = {"hymba_1728_w1024": "hymba-1.5b", "mixtral_4600_w4096": "mixtral-8x7b"}
 
 
 def emit(obj) -> None:
@@ -337,13 +418,16 @@ def attention_case(torch, rng, dtype, B, H, kvh, D, P, ps, pps, lengths):
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
-def attention_cost(args, num_heads, dtype):
+def attention_cost(args, num_heads, dtype, window=None):
+    """Bound of one decode call: the visible K/V rows (the last ``window``
+    of each sequence, if any) and the table entries of their pages."""
     q, kp, _, table, lengths = args
     isz = q.element_size()
     _, ps, kvh, d = kp.shape
     lens = [int(x) for x in lengths.tolist()]
-    kv_rows = sum(lens)
-    pages_read = sum(-(-n // ps) for n in lens)
+    lows = [max(0, n - window) if window else 0 for n in lens]
+    kv_rows = sum(n - lo for n, lo in zip(lens, lows))
+    pages_read = sum(-(-n // ps) - lo // ps for n, lo in zip(lens, lows) if n)
     nbytes = (q.shape[0] * num_heads * d * isz          # real query heads
               + 2 * kv_rows * kvh * d * isz              # valid K and V rows
               + pages_read * 4 + q.shape[0] * 4          # table entries, lengths
@@ -352,8 +436,9 @@ def attention_cost(args, num_heads, dtype):
     return bound_ms(nbytes, flops, dtype)
 
 
-def sdpa_yardstick(torch, args, num_heads):
-    """One library call on the KV gathered beforehand (gather not timed)."""
+def sdpa_yardstick(torch, args, num_heads, window=None):
+    """One library call on the KV gathered beforehand (gather not timed),
+    masked to each sequence's visible positions."""
     import torch.nn.functional as F
 
     q, kp, vp, table, lengths = args
@@ -363,7 +448,11 @@ def sdpa_yardstick(torch, args, num_heads):
     k = kp[table.long()].reshape(b, S, kvh, d).transpose(1, 2).contiguous()
     v = vp[table.long()].reshape(b, S, kvh, d).transpose(1, 2).contiguous()
     qh = q[:, :num_heads, None, :].contiguous()               # [B, nh, 1, D]
-    mask = (torch.arange(S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    pos = torch.arange(S, device="cuda")[None, :]
+    mask = pos < lengths[:, None]
+    if window:
+        mask &= pos >= lengths[:, None] - window
+    mask = mask[:, None, None, :]
     try:
         F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
         return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
@@ -392,36 +481,48 @@ def phase_kernels(torch, flush):
         # qwen2-1.5b decode at phase 6's first wave (long_prompt_requests, seed 0)
         "qwen2_decode": dict(H=16, NH=12, KVH=2, D=128, B=4, P=1408, pps=264,
                              lengths=[3637, 2981, 2594, 1853]),
+        # phase 9's windowed decode: hymba-1.5b (25 real heads of 32 over 5,
+        # D 64, window 1024) and mixtral-8x7b (32 over 8, D 128, window
+        # 4096), lengths below, at and far past the window
+        "hymba_window": dict(H=32, NH=25, KVH=5, D=64, B=4, P=4 * 128 + 1, pps=128,
+                             lengths=[700, 1024, 1900, 2048], window=1024),
+        "mixtral_window": dict(H=32, NH=32, KVH=8, D=128, B=4, P=4 * 300 + 1, pps=300,
+                               lengths=[2000, 4096, 4616, 4800], window=4096),
     }
     report = {"attention": [], "copies": []}
     serve = {}
     for case, c in cases.items():
-        NH = c["NH"]
+        NH, W = c["NH"], c.get("window")
         for dtype in ("bfloat16", "float32"):
             lengths = list(c["lengths"])
             if case != "serve" and dtype == "float32":
                 lengths[-1] = 0                      # length 0 -> zeros
             args = attention_case(torch, rng, dtype, c["B"], c["H"], c["KVH"], c["D"],
                                   c["P"], PS, c["pps"], lengths)
-            out = paged_attention(*args, num_heads=NH)
-            ref = paged_attention_ref(*args, num_heads=NH)
+            out = paged_attention(*args, num_heads=NH, window=W)
+            ref = paged_attention_ref(*args, num_heads=NH, window=W)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs()
             tol = TOL[dtype]
             ok = bool((err <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
             check(ok, f"paged_attention {case} {dtype}: max |err| {err.max().item()}")
+            if W:
+                full = paged_attention_ref(*args, num_heads=NH)
+                binds = [i for i, n in enumerate(lengths) if n > W]
+                check(all(not torch.equal(full[i], ref[i]) for i in binds),
+                      f"paged_attention {case}: the window does not bind past it")
             row_err = max_row_rel_err(out[:, :NH], ref[:, :NH], "paged_attention")
             check(row_err <= ROW_REL_TOL[dtype],
                   f"paged_attention {case} {dtype}: row relative error {row_err}")
             check(bool((out[:, NH:] == 0).all()), "padded heads must be zero")
             if 0 in lengths:
                 check(bool((out[lengths.index(0)] == 0).all()), "length-0 row must be zero")
-            times = measure(torch, flush, lambda: paged_attention(*args, num_heads=NH),
-                            lambda: paged_attention_ref(*args, num_heads=NH),
-                            sdpa_yardstick(torch, args, NH))
-            bnd, by = attention_cost(args, NH, dtype)
+            times = measure(torch, flush, lambda: paged_attention(*args, num_heads=NH, window=W),
+                            lambda: paged_attention_ref(*args, num_heads=NH, window=W),
+                            sdpa_yardstick(torch, args, NH, W))
+            bnd, by = attention_cost(args, NH, dtype, W)
             row = dict(case=case, dtype=dtype, q=list(args[0].shape), num_heads=NH,
-                       kvh=c["KVH"], pages_per_seq=c["pps"], lengths=lengths,
+                       kvh=c["KVH"], pages_per_seq=c["pps"], lengths=lengths, window=W,
                        max_abs_err=err.max().item(), max_row_rel_err=row_err, **times,
                        bound_ms=bnd, bound_by=by)
             report["attention"].append(row)
@@ -462,6 +563,10 @@ def phase_kernels(torch, flush):
     report["flash"] = flash_cases(torch, rng, flush)
     serve["flash_attention"] = next(r for r in report["flash"]
                                     if r["case"] == "qwen2_4096" and r["dtype"] == "bfloat16")
+    # phase 9's shapes, for the kernels line
+    serve["zoo_cases"] = {
+        "paged_attention": [r for r in report["attention"] if r.get("window")],
+        "flash_attention": [r for r in report["flash"] if r["case"] in ZOO_FLASH_CASES]}
     emit({"phase": "kernels", **report})
     serve["weight_copies"] = report["weight_copies"]
     return serve
@@ -830,13 +935,15 @@ def copy_variants_now():
 
 
 def check_copy_launches(path, launches, variants, eng) -> dict:
-    """Page-copy launches of a path within one per pool for each install
-    (a prefill or a prefix) and copy-on-write, and within ``LAUNCH_CAPS``;
-    every one on the bulk variant.  Returns the bounds held."""
+    """Page-copy launches of a path within one per pool of each attention
+    segment for each install (a prefill or a prefix) and copy-on-write, and
+    within ``LAUNCH_CAPS``; every one on the bulk variant.  Returns the
+    bounds held."""
     installs = eng.stats["prefills"] + len(eng._prefixes)
     cows = eng.stats["cow_copies"]
-    caps = {"page_scatter": min(LAUNCH_CAPS[path]["page_scatter"], 2 * (installs + cows)),
-            "page_gather": min(LAUNCH_CAPS[path]["page_gather"], 2 * cows)}
+    pools = 2 * sum(seg.has_attention for seg in eng.plan)
+    caps = {"page_scatter": min(LAUNCH_CAPS[path]["page_scatter"], pools * (installs + cows)),
+            "page_gather": min(LAUNCH_CAPS[path]["page_gather"], pools * cows)}
     for name, cap in caps.items():
         check(launches[name] <= cap,
               f"{path}: {launches[name]} {name} launches, at most {cap} expected")
@@ -887,21 +994,37 @@ def serve(torch, cfg, params, n_requests, seed):
     return eng, reqs, seconds
 
 
-def device_kernels(prof):
+def device_kernels(prof, ranges=()):
     """(device-side events of a torch.profiler run, device us of one).  CPU
-    ops also carry their kernels' time, so only device events count."""
+    ops also carry their kernels' time, so only device events count; the
+    device-side spans of the ``record_function`` ranges named in ``ranges``
+    are no kernels and do not count either."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     return ([e for e in prof.key_averages()
-             if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0], dev_us)
+             if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0
+             and e.key not in ranges], dev_us)
 
 
-def step_profile(torch, eng, steps: int) -> dict:
+def range_ms(prof, name):
+    """Device ms of the kernels launched by the ops inside the
+    ``record_function(name)`` ranges (their host-side events; the
+    device-side span of a range also covers the gaps between its kernels),
+    or None where the profiler attributes no kernel to them."""
+    us = 0.0
+    for e in prof.events():
+        if e.name == name and str(getattr(e, "device_type", "")).endswith("CPU"):
+            us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+    return us / 1e3 if us else None
+
+
+def step_profile(torch, eng, steps: int, ranges=()) -> dict:
     """Decode steps of a warmed engine, timed without and then with
     ``torch.profiler``: host wall ms per step, device busy ms and ops per
-    step, idle share, ``paged_attention``'s device ms and share, and the
-    costliest device ops."""
+    step, idle share, ``paged_attention``'s device ms and share, the
+    costliest device ops, and the device ms per step of each named
+    ``record_function`` range in ``ranges``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -916,13 +1039,18 @@ def step_profile(torch, eng, steps: int) -> dict:
             eng.step()
         torch.cuda.synchronize()
         prof_step_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels, dev_us = device_kernels(prof)
+    kernels, dev_us = device_kernels(prof, ranges)
     check(kernels, "profile: torch.profiler saw no device time")
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
     attn = [e for e in kernels if "paged_attention" in e.key]
     attn_ms = sum(dev_us(e) for e in attn) / 1e3 / steps
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    in_ranges = {}
+    for name in ranges:
+        ms = range_ms(prof, name)
+        in_ranges[name] = None if ms is None else ms / steps
     return {"steps": steps, "step_ms": step_ms, "profiled_step_ms": prof_step_ms,
+            "ranges_ms_per_step": in_ranges,
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": 1 - busy_ms / prof_step_ms,
             "device_ops_per_step": sum(e.count for e in kernels) / steps,
@@ -958,16 +1086,18 @@ def contiguous_decode(torch, M, cfg, params, prompt, n_new, forced=None, plain=F
     """Unbatched greedy decode through a contiguous cache; with ``forced``
     tokens, teacher-forced; with ``plain``, the prefill is given explicit
     positions and so takes the plain attention route, not the kernel.
-    Returns (tokens, per-step logits)."""
+    Positions count a model's meta tokens ahead of the prompt, as the
+    engine's do.  Returns (tokens, per-step logits)."""
     toks = [int(t) for t in prompt]
-    cache = M.init_cache(cfg, 1, len(toks) + n_new + 8, device="cuda")
+    m = cfg.num_meta_tokens
+    cache = M.init_cache(cfg, 1, len(toks) + n_new + 8 + m, device="cuda")
     batch = {"tokens": torch.tensor([toks[:-1]], dtype=torch.int32, device="cuda")}
     if plain:
         batch["positions"] = torch.arange(len(toks) - 1, dtype=torch.int32,
                                           device="cuda")[None, :]
     _, cache = M.prefill(cfg, params, batch, cache)
     out, logits_all = [], []
-    cur = len(toks) - 1
+    cur = len(toks) - 1 + m
     for i in range(n_new):
         logits, cache = M.decode_step(cfg, params, cache,
                                       torch.tensor([toks[-1]], dtype=torch.int32, device="cuda"),
@@ -1024,9 +1154,10 @@ def serve_timed(torch, cfg, params, ecfg, reqs, prefix=None):
     return eng, seconds
 
 
-def profile_prefill(torch, eng, prompt):
+def profile_prefill(torch, eng, prompt, phase="long_prompt_prefill_profile", ranges=()):
     """Where one long prefill's time goes: host wall ms with and without
-    ``torch.profiler``, device busy ms, and the costliest device ops."""
+    ``torch.profiler``, device busy ms, the costliest device ops, and the
+    device ms of each named ``record_function`` range in ``ranges``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1039,13 +1170,16 @@ def profile_prefill(torch, eng, prompt):
         eng._run_prefill(prompt)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    kernels, dev_us = device_kernels(prof)
+    kernels, dev_us = device_kernels(prof, ranges)
     check(kernels, "prefill profile: torch.profiler saw no device time")
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     flash = [e for e in kernels if "flash" in e.key]
     flash_ms = sum(dev_us(e) for e in flash) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    emit({"phase": "long_prompt_prefill_profile", "prompt_tokens": len(prompt),
+    in_ranges = {name: range_ms(prof, name) for name in ranges}
+    emit({"phase": phase, "prompt_tokens": len(prompt),
+          "ranges_ms": in_ranges,
+          "ranges_share_of_busy": {k: v / busy_ms for k, v in in_ranges.items() if v},
           "wall_ms": wall_ms, "profiled_wall_ms": prof_ms,
           "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / prof_ms,
           "device_ops": sum(e.count for e in kernels),
@@ -1690,6 +1824,255 @@ def phase_train(torch, K, CK):
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+def device_params(torch, cfg, dtype, seed=0):
+    """Random weights from ``seed``, made on the card: the port's own
+    initialisers (``param_specs``, padded heads' output rows zero) drawing
+    from a CUDA generator with the card as the default device.  A full-width
+    model's ~10^10 draws take seconds there and minutes on the host."""
+    from repro_torch.models.common import init_param_tree
+    from repro_torch.models.transformer import param_specs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        return init_param_tree(param_specs(cfg), gen, dtype, "cuda")
+
+
+class Patched:
+    """Replace ``module.<attr>`` by ``wrap(original)`` while active."""
+
+    def __init__(self, module, attr, wrap):
+        self.module, self.attr, self.wrap = module, attr, wrap
+
+    def __enter__(self):
+        self.original = getattr(self.module, self.attr)
+        setattr(self.module, self.attr, self.wrap(self.original))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.original)
+
+
+def annotated(torch, module, attr, name):
+    """``module.<attr>`` inside a ``record_function(name)`` range while
+    active, so a profile can sum the kernels launched inside it."""
+    def wrap(fn):
+        def inner(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return inner
+    return Patched(module, attr, wrap)
+
+
+def zoo_requests(cfg, Request, spec, seed=0):
+    """The phase's traffic for one model: ``spec["lens"]`` prompts (numpy
+    ``seed`` tokens) x ZOO_NEW_TOKENS, and a request of the registered
+    prefix + 1 token, whose first decode write copies a shared page."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, max_new_tokens=ZOO_NEW_TOKENS, deadline_s=900.0,
+                    prompt=rng.integers(0, cfg.vocab_size, size=n).astype(np.int32))
+            for i, n in enumerate(spec["lens"])]
+    prefix = rng.integers(0, cfg.vocab_size, size=spec["prefix"]).astype(np.int32)
+    cow = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, size=1)]).astype(np.int32)
+    reqs.append(Request(rid=len(reqs), max_new_tokens=ZOO_NEW_TOKENS, deadline_s=900.0,
+                        prompt=cow))
+    return reqs, prefix
+
+
+def zoo_fp32_check(torch, M, cfg, spec):
+    """An fp32 engine with one lane and a bucket of 1 (so an MoE dispatch
+    sees the tokens unbatched decode does): its greedy tokens must equal
+    the port's contiguous decode of the prompt alone.  Returns (the fp32
+    weights, the check's numbers)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import EngineConfig, Request
+
+    layers, n = spec["fp32"]
+    cfg32 = cfg.replace(compute_dtype="float32",
+                        **({} if layers is None else {"num_layers": layers}))
+    params = device_params(torch, cfg32, torch.float32)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, size=n).astype(np.int32)
+    req = Request(rid=0, max_new_tokens=8, deadline_s=900.0, prompt=prompt)
+    pages = -(-(n + cfg.num_meta_tokens + 9) // 16) + 2
+    serve_timed(torch, cfg32, params, EngineConfig(
+        max_batch=1, page_size=16, num_pages=pages + 1, max_pages_per_seq=pages,
+        prefill_bucket=1), [req])
+    ref, _ = contiguous_decode(torch, M, cfg32, params, prompt, 8)
+    check(ref == req.generated,
+          f"{cfg.name} fp32 ({cfg32.num_layers} layers): engine {req.generated} != "
+          f"contiguous decode {ref}")
+    return params, {"layers": cfg32.num_layers, "prompt_tokens": n,
+                    "tokens_equal": len(ref), "window": cfg.sliding_window}
+
+
+def zoo_bf16_check(torch, M, cfg, params, eng):
+    """Each bf16 token of the shortest request within tolerance of the
+    maximum logit of a teacher-forced contiguous decode (plain attention
+    route, explicit positions)."""
+    short = min(eng.finished, key=lambda r: len(r.prompt))
+    _, logits = contiguous_decode(torch, M, cfg, eng.params, short.prompt, len(short.generated),
+                                  forced=short.generated, plain=True)
+    tol = TOL["bfloat16"]
+    gaps = []
+    for step, (lg, tok) in enumerate(zip(logits, short.generated)):
+        check(bool(torch.isfinite(lg).all()), f"{cfg.name}: non-finite logits")
+        top = lg.max()
+        gap = (top - lg[tok]).item()
+        gaps.append(gap)
+        check(gap <= tol["atol"] + tol["rtol"] * abs(top.item()),
+              f"{cfg.name} bf16 step {step}: token {tok} is {gap} below the contiguous max")
+    return {"prompt_tokens": len(short.prompt), "max_gap_to_top_logit": max(gaps),
+            "tokens_equal_to_contiguous_argmax": sum(g == 0.0 for g in gaps)}
+
+
+def zoo_model(torch, M, K, arch, spec):
+    """One model of phase 9: the fp32 check, then the bf16 traffic through
+    a fresh engine with the launch counts zeroed just before and read just
+    after, a profiled decode step with 4 live lanes, and the bf16 check.
+    Returns the launch counts, with ``paged_attention_windowed`` the
+    windowed share of paged_attention's."""
+    import repro_torch.models.blocks as blocks_module
+    import repro_torch.models.moe as moe_module
+    import repro_torch.models.ssm as ssm_module
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.page_gather import kernel as CK
+    from repro_torch.kernels.paged_attention import ops as attn_ops
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    full = get_config(arch)
+    cfg = full if spec["layers"] is None else full.replace(num_layers=spec["layers"])
+    t0 = time.perf_counter()
+    fp32 = None
+    params = None
+    if spec["fp32"]:
+        p32, fp32 = zoo_fp32_check(torch, M, cfg, spec)
+        if spec["fp32"][0] is None:                    # the whole model: keep its weights
+            params = cast_params(cfg, p32)
+        del p32
+        torch.cuda.empty_cache()
+    if params is None:
+        params = device_params(torch, cfg, torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+    ecfg = EngineConfig(max_batch=4, page_size=16, num_pages=spec["pages"],
+                        max_pages_per_seq=spec["pps"], prefill_bucket=32)
+    warm, _ = zoo_requests(cfg, Request, dict(spec, lens=[200], prefix=8), seed=1)
+    for r in warm:
+        r.max_new_tokens = 2
+    serve_timed(torch, cfg, params, ecfg, warm)          # cuBLAS, allocator
+
+    reqs, prefix = zoo_requests(cfg, Request, spec)
+    windowed = {"window": 0, "none": 0}
+    drops = {"prefill": [], "decode": []}
+
+    def count_windows(fn):
+        def inner(*args, window=None, **kw):
+            windowed["none" if window is None else "window"] += 1
+            return fn(*args, window=window, **kw)
+        return inner
+
+    def note_drops(fn):
+        def inner(p, x, *args, **kw):
+            y, aux = fn(p, x, *args, **kw)
+            drops["prefill" if x.shape[1] > 1 else "decode"].append(aux["moe_drop_frac"])
+            return y, aux
+        return inner
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    FK.reset_variant_counts()
+    CK.reset_copy_variant_counts()
+    with Patched(attn_ops, "_cuda", count_windows), \
+            Patched(blocks_module, "moe_forward", note_drops):
+        eng, seconds = serve_timed(torch, cfg, params, ecfg, reqs, prefix=prefix)
+    launches = dict(K.launch_counts)
+    variants = dict(FK.variant_counts)
+    copy_variants = copy_variants_now()
+    peak = torch.cuda.max_memory_allocated()
+    done = sorted(eng.finished, key=lambda r: r.rid)
+    tokens = sum(len(r.generated) for r in done)
+    prefill_s = sum(r.prefill_ms for r in done) / 1e3
+    for name, n in launches.items():
+        check(n > 0, f"{arch}: kernel {name} was not launched")
+    check(windowed["window"] + windowed["none"] == launches["paged_attention"],
+          f"{arch}: paged_attention calls {windowed} != launches {launches['paged_attention']}")
+    if cfg.sliding_window:
+        check(windowed["window"] > 0, f"{arch}: no windowed paged_attention launch")
+    if cfg.global_layers:
+        check(windowed["none"] > 0, f"{arch}: no paged_attention launch of a global layer")
+    check(variants == {"hopper": launches["flash_attention"], "generic": 0},
+          f"{arch}: flash_attention launches by variant {variants}, all should be hopper")
+    check(eng.stats["cow_copies"] > 0 and eng.stats["prefix_hits"] > 0,
+          f"{arch}: the prefix request did not share pages / copy on write")
+    row = {"phase": "zoo", "arch": arch, "dtype": cfg.compute_dtype,
+           "layers": cfg.num_layers, "of_layers": full.num_layers,
+           "window": cfg.sliding_window, "global_layers": list(cfg.global_layers),
+           "meta_tokens": cfg.num_meta_tokens, "experts": cfg.num_experts,
+           "setup_s": setup_s, "prompt_tokens": [len(r.prompt) for r in reqs],
+           "requests_served": len(done), "tokens": tokens, "seconds": seconds,
+           "prefill_ms": [[len(r.prompt) - 1, r.prefill_ms] for r in done],
+           "prefill_share": prefill_s / seconds,
+           "decode_tok_per_s": tokens / (seconds - prefill_s),
+           "steps": eng.stats["steps"], "peak_pages_used": eng.stats["peak_pages_used"],
+           "prefix_hits": eng.stats["prefix_hits"], "cow_copies": eng.stats["cow_copies"],
+           "peak_memory_bytes": peak, "launches": launches,
+           "paged_attention_calls": windowed, "flash_attention_variants": variants,
+           "copy_variants": copy_variants,
+           "copy_launch_bounds": check_copy_launches("zoo", launches, copy_variants, eng),
+           "fp32_check": fp32}
+    if cfg.num_experts:
+        row["moe_drop_frac"] = {k: (torch.stack(v).float().mean().item() if v else None)
+                                for k, v in drops.items()}
+    if spec["bf16_check"]:
+        row["bf16_check"] = zoo_bf16_check(torch, M, cfg, params, eng)
+    emit(row)
+
+    # where a decode step's time goes: 4 live lanes, the 4 longest prompts
+    prof_eng = ServeEngine(cfg, params, ecfg, device="cuda")
+    lanes = sorted(reqs, key=lambda r: -len(r.prompt))[:4]
+    for r in lanes:
+        prof_eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=16,
+                                deadline_s=900.0))
+    for _ in range(2):
+        prof_eng.step()
+    check(len(prof_eng.active) == 4, f"{arch} decode profile: expected 4 live lanes")
+    contexts = [prof_eng.seq_len[r.rid] for r in lanes]
+    ranges = ("zoo.moe", "zoo.moe.experts") if cfg.num_experts else ()
+    with annotated(torch, blocks_module, "moe_forward", "zoo.moe"), \
+            annotated(torch, moe_module, "expert_ffn", "zoo.moe.experts"):
+        prof = step_profile(torch, prof_eng, 6, ranges=ranges)
+    if cfg.num_experts:
+        moe_ms, experts_ms = (prof["ranges_ms_per_step"][k] for k in ranges)
+        prof["moe_experts_ms_per_step"] = experts_ms
+        prof["moe_dispatch_ms_per_step"] = (None if moe_ms is None or experts_ms is None
+                                            else moe_ms - experts_ms)
+    emit({"phase": "zoo_decode_profile", "arch": arch, "lanes": 4,
+          "contexts_at_start": contexts, **prof})
+    if cfg.ssm_state:
+        with annotated(torch, ssm_module, "selective_scan", "zoo.ssm.scan"):
+            profile_prefill(torch, prof_eng, max(reqs, key=lambda r: len(r.prompt)).prompt[:-1],
+                            phase="zoo_prefill_profile", ranges=("zoo.ssm.scan",))
+    del eng, prof_eng, params
+    torch.cuda.empty_cache()
+    return dict(launches, paged_attention_windowed=windowed["window"])
+
+
+def phase_zoo(torch, M, K):
+    """Phase 9: every model of ``ZOO`` in turn, each freed before the next.
+    Returns each model's launch counts (``zoo_model``)."""
+    launches = {}
+    for arch, spec in ZOO.items():
+        launches[arch] = zoo_model(torch, M, K, arch, spec)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1788,6 +2171,10 @@ def main() -> int:
     # out-of-core OOCTrainer (its grad phase streams through the page copies)
     train_launches, train_copy_variants = phase_train(torch, K, CK)
 
+    # 9. the MoE and hybrid decoders, and llama3-8b / deepseek-7b, served at
+    # full width (the MoE models' depth cut)
+    zoo_launches = phase_zoo(torch, M, K)
+
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
     rows = []
@@ -1799,10 +2186,22 @@ def main() -> int:
                "launches_by_path": {"serve": launches[name],
                                     "long_prompt": long_launches[name],
                                     "weight_pager": weight_launches[name],
-                                    "train": train_launches[name]},
+                                    "train": train_launches[name],
+                                    "zoo": {a: n[name] for a, n in zoo_launches.items()}},
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
+        if name in kstats["zoo_cases"]:
+            # phase 9's shapes: each case with its model's launches there
+            model_of = ZOO_PAGED_CASES if name == "paged_attention" else ZOO_FLASH_CASES
+            # (paged_attention: its windowed launches in that model's run)
+            counted = "paged_attention_windowed" if name == "paged_attention" else name
+            row["zoo_cases"] = [
+                {"case": c["case"], "dtype": c["dtype"], "window": c["window"],
+                 "launches": zoo_launches[model_of[c["case"]]][counted],
+                 **{k: c[k] for k in ("max_abs_err", "max_row_rel_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}}
+                for c in kstats["zoo_cases"][name]]
         if name == "flash_attention":
             # the variant the main path took, and each variant's time at
             # the main-path shape (qwen2's 4096-token prompt, bf16)

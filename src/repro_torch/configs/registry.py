@@ -17,14 +17,14 @@ _MODULES = {
     "qwen2-1.5b": "qwen2_1p5b",
     "llama3-8b": "llama3_8b",
     "deepseek-7b": "deepseek_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "phi3.5-moe-42b-a6.6b": "phi3p5_moe",
+    "hymba-1.5b": "hymba_1p5b",
 }
 
 # Architectures of the JAX package that the port does not run yet
-# (ROADMAP.md, Queue 1 item 9: the rest of the model zoo).
-_NOT_PORTED = (
-    "hymba-1.5b", "seamless-m4t-medium", "mixtral-8x7b",
-    "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b", "xlstm-1.3b",
-)
+# (ROADMAP.md, Queue 1 item 7: xLSTM, M-RoPE, encoder-decoder).
+_NOT_PORTED = ("seamless-m4t-medium", "qwen2-vl-7b", "xlstm-1.3b")
 
 ARCH_IDS = tuple(_MODULES)
 

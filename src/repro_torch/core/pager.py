@@ -922,8 +922,10 @@ class PagingService:
         Holds ``npages`` pins on the calling thread — the documented
         exception to the one-pin-per-thread invariant.  Two guards make
         that safe under ANY number of concurrent runs: the length cap
-        ``min(config.max_lease_run, num_slots // 2)`` (longer requests
-        raise ``ValueError``), and abort-and-retry — a grant that cannot
+        ``min(config.max_lease_run, num_slots // 2)`` together with the
+        stripe rule of :meth:`lease_run_limit` (a run past either raises
+        ``ValueError`` at once: it could never be granted), and
+        abort-and-retry — a grant that cannot
         complete within the attempt bound releases every pin the run
         holds and retries with jittered backoff, so incomplete runs never
         hold the slots other runs are waiting on (two-phase locking with
@@ -936,6 +938,12 @@ class PagingService:
                 f"lease_run of {npages} pages outside [1, {cap}] "
                 f"(max_lease_run={self.config.max_lease_run}, "
                 f"{self.buffer.num_slots} slots)")
+        fits = self.lease_run_limit(region, first_page, npages)
+        if fits < npages:
+            raise ValueError(
+                f"lease_run of pages [{first_page}, {first_page + npages}) "
+                f"puts more pages on one of the {len(self.shards)} metadata "
+                f"stripes than it owns slots; only the first {fits} fit")
         pages = list(range(first_page, first_page + npages))
         attempt = 0
         while True:
@@ -966,6 +974,30 @@ class PagingService:
             # Thread-dependent jitter breaks symmetric retry collisions.
             time.sleep(0.001 * (1 + (threading.get_ident() >> 4) % 7)
                        * min(attempt, 8))
+
+    def lease_run_limit(self, region: "UMapRegion", first_page: int,
+                        npages: int) -> int:
+        """Pages of the run ``[first_page, first_page + npages)`` that
+        ``lease_run`` can grant, counted from ``first_page``: at most the
+        length cap, and no more pages on one metadata stripe than the
+        stripe owns slots.  Page ``p`` lives on stripe ``hash((region, p))
+        % stripes`` and a stripe only ever fills its own slots (buffer slot
+        ``s`` belongs to stripe ``s % stripes``), so a run past this limit
+        could never hold all its pins at once.  Callers cut their runs to
+        it; ``lease_run`` refuses a run that exceeds it."""
+        cap = max(1, min(self.config.max_lease_run,
+                         self.buffer.num_slots // 2))
+        stripes = len(self.shards)
+        room = [len(range(i, self.buffer.num_slots, stripes))
+                for i in range(stripes)]
+        n = 0
+        for pno in range(first_page, first_page + min(npages, cap)):
+            i = self._shard_index((region.region_id, pno))
+            if room[i] == 0:
+                break
+            room[i] -= 1
+            n += 1
+        return n
 
     def release_lease(self, entry: PageEntry, write: bool,
                       excl: bool = False,

@@ -6,9 +6,12 @@
 // through a per-sequence page table, positions >= length masked, lengths
 // clamped to pages_per_seq * page_size, table entries outside [0, P) skipped
 // (never read), online softmax in fp32, output in the input type, a row of
-// length 0 gives zeros.  One addition: `num_heads` real query heads out of
-// H; head i reads KV head i / (num_heads / KVH), heads >= num_heads are
-// written as zeros (their rows of the output projection are zero).
+// length 0 gives zeros.  Two additions: `num_heads` real query heads out
+// of H; head i reads KV head i / (num_heads / KVH), heads >= num_heads are
+// written as zeros (their rows of the output projection are zero).  And a
+// sliding `window` (0: none), the rule of the JAX package's paged decode
+// (`decode_attention` on the gathered pages): only positions
+// [len - window, len) are visible.
 //
 // What bounds it on an H100: bytes.  Each valid K/V row is read once
 // (2 * length * KVH * D * itemsize per sequence) for 4 * rep * D operations
@@ -25,6 +28,12 @@
 //     splits of 8 pages.  It never reads `lengths` or the table on the host; a block
 //     whose split starts at or past its sequence's length exits at once
 //     (idle engine lanes have length 0).
+//   * A window moves the splits: they start at the page that holds
+//     position len - window (sequence by sequence, on the device) and the
+//     wrapper plans them over at most ceil((window - 1) / page_size) + 1
+//     pages, so a block never reads a page the window cannot see.  The
+//     tokens of that first page before the window are zero-filled by the
+//     copy and masked, like the tokens past the length in the last.
 //   * Copy engine: cp.async, 16 bytes a thread, into a ring of 3 stages in
 //     shared memory (64 tokens of K and V a stage in bf16, 32 in fp32), so a
 //     block keeps up to two stages (a whole 128-token split: 64 KB at D 128
@@ -78,6 +87,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -106,6 +116,7 @@ struct Args {
   float* scratch;              // acc [B,KVH,splits,rep,D], then m, then l
   int B, H, num_heads, kvh, D, num_pool_pages, page_size, pages_per_seq;
   int pages_per_split, splits;
+  int window;                  // 0: none
   float scale;
   int vec;                     // rows are 16-byte aligned: cp.async
 };
@@ -120,6 +131,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 
 __device__ __forceinline__ int seq_len(const Args& a, int b) {
   return max(0, min(a.lengths[b], a.pages_per_seq * a.page_size));
+}
+
+// What sequence b's query sees: positions [lo, len), read from the page
+// that holds lo on; split s covers tokens [first + s * split_tok, ...).
+struct Span {
+  int len, lo, first;
+};
+__device__ __forceinline__ Span visible_span(const Args& a, int b) {
+  const int len = seq_len(a, b);
+  const int lo = a.window > 0 ? max(0, len - a.window) : 0;
+  return {len, lo, lo / a.page_size * a.page_size};
 }
 
 // Scratch offsets of (b, g, split, r): index into m / l; times D into acc.
@@ -144,10 +166,12 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // One stage: tokens [tok0, tok0 + ST) of the split into sK / sV ([ST][LD]).
 // A thread takes one 16-byte chunk of a row of K and the same chunk of V;
 // the 16 (bf16, D 128) threads of a row read its 256 bytes together.
-// Tokens past n_tok, on a skipped page, and columns >= D are zeros.
+// Tokens before n_lo (ahead of the window) or past n_tok, on a skipped
+// page, and columns >= D are zeros.
 template <typename T, int DP>
 __device__ __forceinline__ void load_stage(const Args& a, T* sK, T* sV, const int* sPage,
-                                           const T* kg, const T* vg, int tok0, int n_tok) {
+                                           const T* kg, const T* vg, int tok0, int n_lo,
+                                           int n_tok) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CH = DP / VEC;                        // 16-byte chunks a row
   constexpr int ST = kWarps * Tile<T>::kTok;
@@ -157,7 +181,7 @@ __device__ __forceinline__ void load_stage(const Args& a, T* sK, T* sV, const in
     const int r = idx / CH;
     const int c = (idx % CH) * VEC;
     const int tk = tok0 + r;
-    const int page = tk < n_tok ? sPage[tk / a.page_size] : -1;
+    const int page = tk >= n_lo && tk < n_tok ? sPage[tk / a.page_size] : -1;
     const bool ok = page >= 0 && c < a.D;
     const int64_t off = ok ? ((int64_t)page * a.page_size + tk % a.page_size) * row + c : 0;
     T* dk = sK + r * LD + c;
@@ -239,7 +263,7 @@ struct StateBf16 {
 
   // Tokens [tk0, tk0 + 16) of the split, staged at rows [row0, row0 + 16).
   __device__ void tile(const Args& a, const __nv_bfloat16* sK, const __nv_bfloat16* sV,
-                       const int* sPage, int row0, int tk0, int n_tok) {
+                       const int* sPage, int row0, int tk0, int n_lo, int n_tok) {
     constexpr int LD = DP + Tile<__nv_bfloat16>::kPad;
     const int lane = threadIdx.x % 32, t = lane % 4;
     const int mi = lane / 8, ri = lane % 8;           // ldmatrix: matrix, row
@@ -257,7 +281,7 @@ struct StateBf16 {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int tk = tk0 + nt * 8 + 2 * t + e;
-        const bool ok = tk < n_tok && sPage[tk / a.page_size] >= 0;
+        const bool ok = tk >= n_lo && tk < n_tok && sPage[tk / a.page_size] >= 0;
         s[nt][e] = ok ? s[nt][e] * a.scale : -INFINITY;
         mx = fmaxf(mx, s[nt][e]);
       }
@@ -335,12 +359,13 @@ struct StateF32 {
   }
 
   __device__ void tile(const Args& a, const float* sK, const float* sV, const float* sQ,
-                       float* sP, const int* sPage, int row0, int tk0, int n_tok, int rep) {
+                       float* sP, const int* sPage, int row0, int tk0, int n_lo, int n_tok,
+                       int rep) {
     constexpr int LD = DP + Tile<float>::kPad;
     constexpr int TT = Tile<float>::kTok;
     const int lane = threadIdx.x % 32, j = lane % TT, part = lane / TT;
     const int tk = tk0 + j;
-    const bool ok = tk < n_tok && sPage[tk / a.page_size] >= 0;
+    const bool ok = tk >= n_lo && tk < n_tok && sPage[tk / a.page_size] >= 0;
     float sc[kMaxRep];
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r) sc[r] = 0.f;
@@ -453,15 +478,16 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(Args a)
   const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int rep = a.num_heads / a.kvh;
-  const int len = seq_len(a, b);
+  const Span sp = visible_span(a, b);
   const int split_tok = a.pages_per_split * a.page_size;
-  const int start = split * split_tok;
+  const int start = sp.first + split * split_tok;
   if (a.splits == 1 && g == 0) zero_heads<T>(a, b, a.num_heads, a.H);   // padded heads
-  if (start >= len) {                       // nothing of this sequence here
+  if (start >= sp.len) {                    // nothing of this sequence here
     if (a.splits == 1) zero_heads<T>(a, b, g * rep, (g + 1) * rep);
     return;
   }
-  const int n_tok = min(split_tok, len - start);
+  const int n_tok = min(split_tok, sp.len - start);
+  const int n_lo = max(0, sp.lo - start);   // the split's tokens ahead of the window
 
   extern __shared__ uint4 smem_raw[];
   char* smem = reinterpret_cast<char*>(smem_raw);
@@ -472,7 +498,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(Args a)
 
   // the split's page ids, each read once; pages past the length are not
   // read from the table (nor, a fortiori, from the pool)
-  const int first_page = split * a.pages_per_split;
+  const int first_page = start / a.page_size;
   const int n_pages = (n_tok + a.page_size - 1) / a.page_size;
   for (int i = threadIdx.x; i < n_pages; i += kThreads) {
     const int p = a.table[(int64_t)b * a.pages_per_seq + first_page + i];
@@ -493,7 +519,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(Args a)
   const int n_st = (n_tok + ST - 1) / ST;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_st) load_stage<T, DP>(a, slot_k(st), slot_k(st) + ST * LD, sPage, kg, vg, st * ST, n_tok);
+    if (st < n_st)
+      load_stage<T, DP>(a, slot_k(st), slot_k(st) + ST * LD, sPage, kg, vg, st * ST, n_lo, n_tok);
     cp_async_commit();
   }
 
@@ -506,16 +533,18 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(Args a)
     cp_async_wait<kStages - 2>();          // stage st has landed
     __syncthreads();                        // ... for every thread; stage st-1 is consumed
     const int nx = st + kStages - 1;
-    if (nx < n_st) load_stage<T, DP>(a, slot_k(nx), slot_k(nx) + ST * LD, sPage, kg, vg, nx * ST, n_tok);
+    if (nx < n_st)
+      load_stage<T, DP>(a, slot_k(nx), slot_k(nx) + ST * LD, sPage, kg, vg, nx * ST, n_lo, n_tok);
     cp_async_commit();
     const int row0 = warp * TT;
     const int tk0 = st * ST + row0;
     if (tk0 < n_tok) {
       const T* sK = slot_k(st);
       if constexpr (sizeof(T) == 2)
-        state.tile(a, sK, sK + ST * LD, sPage, row0, tk0, n_tok);
+        state.tile(a, sK, sK + ST * LD, sPage, row0, tk0, n_lo, n_tok);
       else
-        state.tile(a, sK, sK + ST * LD, sQ, sP + warp * kMaxRep * TT, sPage, row0, tk0, n_tok, rep);
+        state.tile(a, sK, sK + ST * LD, sQ, sP + warp * kMaxRep * TT, sPage, row0, tk0, n_lo,
+                   n_tok, rep);
     }
   }
   cp_async_wait<0>();
@@ -563,9 +592,9 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) paged_attention_merge_kernel(Args a) {
   const int r = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int rep = a.num_heads / a.kvh;
-  const int len = seq_len(a, b);
+  const Span sp = visible_span(a, b);
   const int split_tok = a.pages_per_split * a.page_size;
-  const int n = (len + split_tok - 1) / split_tok;        // splits that ran
+  const int n = (sp.len - sp.first + split_tok - 1) / split_tok;   // splits that ran
   extern __shared__ float sw[];             // [splits] weights, the sum, [splits] l
   float* sl = sw + a.splits + 1;
   const int64_t n_part = (int64_t)a.B * a.kvh * a.splits * rep;
@@ -636,9 +665,12 @@ cudaError_t launch_typed(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  The caller picks pages_per_split and
-// splits (splits * pages_per_split >= pages_per_seq) and, for splits > 1,
-// passes fp32 scratch of B * KVH * splits * rep * (D + 2) elements.  vec:
+// dtype: 0 = float32, 1 = bfloat16.  window: 0 (none) or the sliding
+// window.  The caller picks pages_per_split and splits to cover the visible
+// span (pages_per_seq, or with a window min(pages_per_seq,
+// ceil((window - 1) / page_size) + 1) pages: splits * pages_per_split >=
+// span > (splits - 1) * pages_per_split) and, for splits > 1, passes fp32
+// scratch of B * KVH * splits * rep * (D + 2) elements.  vec:
 // k_pool / v_pool are 16-byte aligned and D * itemsize is a multiple of 16.
 // Launches one kernel, or two for splits > 1, on `stream`; returns
 // cudaGetLastError() after them (0 = launched).  Refuses what the kernels do
@@ -648,19 +680,23 @@ extern "C" int repro_paged_attention(const void* q, const void* k_pool, const vo
                                      float* scratch, int dtype, int B, int H, int num_heads,
                                      int kvh, int D, int num_pool_pages, int page_size,
                                      int pages_per_seq, int pages_per_split, int splits,
-                                     float scale, int vec, void* stream) {
+                                     int window, float scale, int vec, void* stream) {
+  const int64_t span =
+      window > 0 && page_size > 0
+          ? std::min<int64_t>(pages_per_seq, ((int64_t)window - 1 + page_size - 1) / page_size + 1)
+          : pages_per_seq;
   if (B < 1 || B > 65535 || kvh < 1 || kvh > 65535 || D < 1 || D > kMaxD ||
       num_heads < 1 || num_heads > H || num_heads % kvh != 0 || num_heads / kvh > kMaxRep ||
       page_size < 1 || pages_per_seq < 1 || pages_per_split < 1 ||
       pages_per_split > kMaxSplitPages || splits < 1 || splits > kMaxSplits ||
-      (int64_t)splits * pages_per_split < pages_per_seq ||
-      (int64_t)(splits - 1) * pages_per_split >= pages_per_seq ||
+      window < 0 || (int64_t)splits * pages_per_split < span ||
+      (int64_t)(splits - 1) * pages_per_split >= span ||
       (int64_t)pages_per_seq * page_size > INT32_MAX || (splits > 1 && scratch == nullptr) ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k_pool, v_pool, table, lengths, out, scratch, B, H, num_heads, kvh, D,
-               num_pool_pages, page_size, pages_per_seq, pages_per_split, splits, scale,
-               vec};
+               num_pool_pages, page_size, pages_per_seq, pages_per_split, splits, window,
+               scale, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? launch_typed<float>(a, s)
                                      : launch_typed<__nv_bfloat16>(a, s);

@@ -4,7 +4,9 @@ Replaces the Pallas TPU kernel in ``repro/kernels/paged_attention/kernel.py``
 with a hand-written CUDA kernel that splits each sequence's pages over
 blocks: a block stages its split's K/V rows with ``cp.async``, scores them
 on the tensor cores (bf16) or with FMA (fp32) under an fp32 online
-softmax, and a second kernel merges the splits in a fixed order.  The
+softmax, and a second kernel merges the splits in a fixed order.  With a
+sliding ``window`` the splits cover only the pages that can hold one of
+the last ``window`` positions, from the page of ``len - window`` on.  The
 wrapper checks device, dtype, shape and contiguity, picks the split from
 shapes alone (:func:`split_plan`; it never reads ``lengths`` or the table
 on the host), allocates the output and the merge scratch, launches on
@@ -37,22 +39,32 @@ def _function():
     if _fn is None:
         fn = load_library("paged_attention").repro_paged_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 11 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 7 + [i] * 12 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def visible_pages(pages_per_seq: int, page_size: int, window: Optional[int]) -> int:
+    """Most table entries a sequence's visible keys can span: the whole
+    table, or with a window the pages holding positions ``[len - window,
+    len)``, at most ``ceil((window - 1) / page_size) + 1`` whatever ``len``."""
+    if window is None:
+        return pages_per_seq
+    return min(pages_per_seq, -(-(window - 1) // page_size) + 1)
+
+
 @functools.lru_cache(maxsize=64)
 def split_plan(pages_per_seq: int, page_size: int, b: int, kvh: int,
-               num_sms: int) -> Tuple[int, int]:
+               num_sms: int, window: Optional[int] = None) -> Tuple[int, int]:
     """(pages_per_split, splits) for a [b, pages_per_seq] table over kvh KV
-    heads: about ``BLOCKS_PER_SM`` blocks per SM over the whole table (a
-    block past its sequence's length exits at once), at least
-    ``MIN_SPLIT_TOKENS`` tokens a split, at most ``MAX_SPLIT_PAGES`` pages.
-    Shapes only: the same plan serves every step of a decode whatever the
-    lengths are, so it is cached.  ``sweep.py`` times other split sizes
-    against it."""
+    heads: about ``BLOCKS_PER_SM`` blocks per SM over the visible span
+    (:func:`visible_pages`; a block past its sequence's length exits at
+    once), at least ``MIN_SPLIT_TOKENS`` tokens a split, at most
+    ``MAX_SPLIT_PAGES`` pages.  Shapes only: the same plan serves every
+    step of a decode whatever the lengths are, so it is cached.
+    ``sweep.py`` times other split sizes against it."""
+    pages_per_seq = visible_pages(pages_per_seq, page_size, window)
     want = max(1, -(-BLOCKS_PER_SM * num_sms // (b * kvh)))
     per = max(-(-MIN_SPLIT_TOKENS // page_size), -(-pages_per_seq // want))
     per = max(min(per, pages_per_seq, MAX_SPLIT_PAGES), -(-pages_per_seq // MAX_SPLITS))
@@ -72,7 +84,8 @@ def _num_sms(device: torch.device) -> int:
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                     page_table: torch.Tensor, lengths: torch.Tensor,
-                    num_heads: Optional[int] = None) -> torch.Tensor:
+                    num_heads: Optional[int] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
     """Decode attention through a paged KV pool, on the card.
 
     q:           [B, H, D]                one query token per sequence
@@ -81,6 +94,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     lengths:     [B] int32                valid tokens per sequence
     num_heads:   real query heads (default H); heads past it are padding
                  and come back as zeros
+    window:      sliding window: only positions ``[len - window, len)``
+                 are visible (None: all of ``[0, len)``)
     returns      [B, H, D] in q's dtype
     """
     b, h, d = q.shape
@@ -104,11 +119,13 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                          f"of KVH ({kvh}), at most 8 per KV head, <= H ({h}); D <= 256")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention kernel: inputs must be contiguous")
+    if window is not None and window < 1:
+        raise ValueError(f"paged_attention kernel: window must be >= 1, got {window}")
     out = torch.empty_like(q)
     pps = page_table.shape[1]
     if b == 0 or pps == 0:
         return out.zero_()
-    per, splits = split_plan(pps, page_size, b, kvh, _num_sms(q.device))
+    per, splits = split_plan(pps, page_size, b, kvh, _num_sms(q.device), window)
     # partial (acc, m, l) of every split, merged in order by a second kernel;
     # freed on return, the caching allocator hands it out again only to work
     # ordered after both launches on this stream
@@ -123,6 +140,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
         _DTYPES[q.dtype], b, h, nh, kvh, d, p_total, page_size, pps, per, splits,
-        1.0 / math.sqrt(d), int(vec), torch.cuda.current_stream(q.device).cuda_stream)
+        window or 0, 1.0 / math.sqrt(d), int(vec),
+        torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("paged_attention", err)
     return out

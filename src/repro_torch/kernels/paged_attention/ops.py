@@ -12,12 +12,13 @@ from .ref import paged_attention_ref
 
 
 def paged_attention(q, k_pool, v_pool, page_table, lengths, impl="auto",
-                    num_heads=None):
+                    num_heads=None, window=None):
     if impl == "auto":
         impl = "cuda" if q.is_cuda else "ref"
     if impl == "cuda":
-        return _cuda(q, k_pool, v_pool, page_table, lengths, num_heads=num_heads)
+        return _cuda(q, k_pool, v_pool, page_table, lengths, num_heads=num_heads,
+                     window=window)
     if impl == "ref":
         return paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
-                                   num_heads=num_heads)
+                                   num_heads=num_heads, window=window)
     raise ValueError(f"unknown impl {impl!r}; choose auto, cuda or ref")

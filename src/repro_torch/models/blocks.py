@@ -1,18 +1,23 @@
-"""Decoder blocks, cache-aware: the dense kind (port of ``repro/models/blocks.py``).
+"""Decoder blocks, cache-aware (port of ``repro/models/blocks.py``): the
+dense, MoE and hymba kinds.
 
 A block provides ``block_param_specs(cfg, seg)`` (one layer's ParamSpec
 tree) and ``block_apply(cfg, seg, p, x, ctx) -> (x, new_cache_layer, aux)``.
 ``ctx`` carries the mode ("train" | "prefill" | "decode"), positions and
 the per-layer cache slice.  A prefill whose positions are the default
 ``0..S-1`` runs its self-attention in the ``flash_attention`` kernel; a
-prefill with explicit positions keeps the plain ``attention``.  Other
-block kinds (MoE, Mamba, xLSTM, cross-attention) are not ported yet.
+prefill with explicit positions keeps the plain ``attention``.  A hymba
+block runs attention and a Mamba mixer side by side on the same input
+(``models/ssm.py``); an MoE block's FFN is ``models/moe.py``.  The xLSTM
+kinds and cross-attention are not ported yet.
 
 Cache writes are **in-place** (JAX rebuilt the cache with ``.at[].set``):
 a writer returns the very tensors it was given, updated, so the caller can
 tell what was written in place from what is new.  On the paged decode path
 the new token goes into the pool with one index write and attention reads
-the pool through the page table with the ``paged_attention`` kernel;
+the pool through the page table with the ``paged_attention`` kernel
+(with the segment's sliding window, if any: the pool holds every position
+and the kernel reads only the last ``window``);
 :func:`_gather_paged` (gather pages, then plain ``decode_attention``) stays
 as the oracle the tests hold that path to.
 """
@@ -28,6 +33,8 @@ from ..configs.base import ModelConfig, Segment
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_attention
 from .common import ParamSpec, fan_in_init, ones_init, zeros_init
+from .moe import moe_forward, moe_param_specs
+from .ssm import mamba_decode, mamba_forward, mamba_param_specs, mamba_state_init
 from .layers import (
     AttnSpec,
     apply_rope,
@@ -128,16 +135,15 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
             new_cache = _write_prefill_cache(ctx.cache, k, v, q_pos, window)
     elif ctx.cache is not None and "k_pool" in ctx.cache:
         # paged decode: write the token through the page table, then read the
-        # pool through the table in-kernel (padded heads come back as zeros;
-        # their wo rows are zero)
+        # pool through the table in-kernel, the last `window` positions of
+        # a windowed segment only (padded heads come back as zeros; their
+        # wo rows are zero)
         assert s == 1
-        if window is not None:
-            raise NotImplementedError(
-                "paged decode with a sliding window is not ported yet")
         new_cache = _write_paged_cache(ctx.cache, k, v)
         o = paged_attention(q[:, 0].contiguous(), new_cache["k_pool"],
                             new_cache["v_pool"], new_cache["table"],
-                            new_cache["len"], num_heads=cfg.num_heads)
+                            new_cache["len"], num_heads=cfg.num_heads,
+                            window=window)
     else:  # decode: one token against a contiguous cache
         assert s == 1
         new_cache = _write_decode_cache(ctx.cache, k, v, ctx.cur_pos, window)
@@ -248,31 +254,83 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------- block kinds
 
 
-def _dense_only(seg: Segment) -> None:
-    if seg.kind != "dense":
+def _check_kind(seg: Segment) -> None:
+    if seg.kind not in ("dense", "moe", "hymba"):
         raise NotImplementedError(
-            f"block kind {seg.kind!r} is not ported to repro_torch yet (ROADMAP.md)")
+            f"block kind {seg.kind!r} is not ported to repro_torch yet "
+            f"(ROADMAP.md, Queue 1 item 7)")
 
 
 def block_param_specs(cfg: ModelConfig, seg: Segment) -> dict:
-    _dense_only(seg)
+    _check_kind(seg)
     norm = lambda: ParamSpec((cfg.d_model,), ("embed",), ones_init)  # noqa: E731
-    return {"ln1": norm(), "attn": attn_param_specs(cfg),
-            "ln2": norm(), "mlp": mlp_param_specs(cfg)}
+    if seg.kind == "dense":
+        return {"ln1": norm(), "attn": attn_param_specs(cfg),
+                "ln2": norm(), "mlp": mlp_param_specs(cfg)}
+    if seg.kind == "moe":
+        return {"ln1": norm(), "attn": attn_param_specs(cfg),
+                "ln2": norm(),
+                "moe": moe_param_specs(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                       cfg.moe_sharding)}
+    return {                                    # hymba
+        "ln1": norm(), "attn": attn_param_specs(cfg),
+        "mamba": mamba_param_specs(cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                                   cfg.d_conv, cfg.dt_rank_actual),
+        "beta_attn": ParamSpec((cfg.d_model,), ("embed",), ones_init),
+        "beta_mamba": ParamSpec((cfg.d_model,), ("embed",), ones_init),
+        "ln_attn_out": norm(), "ln_mamba_out": norm(),
+        "ln2": norm(), "mlp": mlp_param_specs(cfg),
+    }
 
 
 def block_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
                 ctx: BlockCtx) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
     """Returns (x_out, new_cache_layer, aux_losses)."""
-    _dense_only(seg)
-    h, new_cache = attn_apply(cfg, seg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), ctx)
-    x = x + h
+    _check_kind(seg)
+    aux: Dict[str, torch.Tensor] = {}
+    if seg.kind == "dense":
+        h, new_cache = attn_apply(cfg, seg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), ctx)
+        x = x + h
+        x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+        return x, new_cache, aux
+
+    if seg.kind == "moe":
+        h, new_cache = attn_apply(cfg, seg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), ctx)
+        x = x + h
+        y, aux = moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                             cfg.top_k, cfg.capacity_factor,
+                             shard_local=cfg.moe_shard_local,
+                             moe_sharding=cfg.moe_sharding)
+        return x + y, new_cache, aux
+
+    # hymba: attention and a Mamba mixer on the same normed input
+    normed = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h_attn, new_attn_cache = attn_apply(cfg, seg, p["attn"], normed, ctx)
+    mc = ctx.cache if ctx.cache is not None else {}
+    if ctx.mode == "decode":
+        h_mamba, (ssm_s, conv_s) = mamba_decode(
+            p["mamba"], normed, mc.get("ssm"), mc.get("conv"), cfg.dt_rank_actual)
+    else:
+        h_mamba, (ssm_s, conv_s) = mamba_forward(
+            p["mamba"], normed, mc.get("ssm"), mc.get("conv"),
+            cfg.dt_rank_actual, cfg.ssm_chunk)
+    fused = 0.5 * (rms_norm(h_attn, p["ln_attn_out"], cfg.norm_eps) * p["beta_attn"]
+                   + rms_norm(h_mamba, p["ln_mamba_out"], cfg.norm_eps) * p["beta_mamba"])
+    x = x + fused
     x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x, new_cache, {}
+    new_cache = dict(new_attn_cache or {})
+    if ctx.mode != "train":
+        new_cache["ssm"] = ssm_s
+        new_cache["conv"] = conv_s
+    return x, (new_cache or None), aux
 
 
 def block_cache_init(cfg: ModelConfig, seg: Segment, batch: int, seq_len: int,
                      dtype, device) -> Dict[str, torch.Tensor]:
     """One layer's cache slice for this segment kind."""
-    _dense_only(seg)
-    return attn_cache_init(cfg, seg, batch, seq_len, dtype, device)
+    _check_kind(seg)
+    c = attn_cache_init(cfg, seg, batch, seq_len, dtype, device)
+    if seg.kind == "hymba":
+        c["ssm"], c["conv"] = mamba_state_init(batch, cfg.d_inner, cfg.ssm_state,
+                                               cfg.d_conv, dtype, device)
+    return c

@@ -18,8 +18,11 @@ Each homogeneous segment runs as a Python loop over its stacked layers
 (the JAX package scanned them with ``jax.lax.scan``); sharding constraints
 are dropped (one device).  Caches are updated in place; a function that
 takes a cache returns it (with any new entries, such as the paged ``len``).
-Encoder-decoder, embedding inputs, M-RoPE and meta tokens are not ported
-yet.
+A model with meta tokens (hymba) runs a learned prefix of
+``num_meta_tokens`` positions ahead of every prompt; ``forward_train``
+strips it from the hidden it returns.  An MoE model's ``forward_train``
+returns its aux losses averaged over the layers.  Encoder-decoder,
+embedding inputs and M-RoPE are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,11 +44,11 @@ NEG_INF = -1.0e9
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.is_encdec or cfg.input_mode != "tokens" or cfg.num_meta_tokens
-            or cfg.mrope_sections is not None):
+    if cfg.is_encdec or cfg.input_mode != "tokens" or cfg.mrope_sections is not None:
         raise NotImplementedError(
             f"{cfg.name}: repro_torch runs decoder-only token models without "
-            f"meta tokens or M-RoPE so far (ROADMAP.md, Queue 1)")
+            f"M-RoPE so far; encoder-decoder, embedding inputs and M-RoPE come "
+            f"in a later slice (ROADMAP.md, Queue 1 item 7)")
 
 
 def cast_params(cfg: ModelConfig, params: dict) -> dict:
@@ -78,6 +81,10 @@ def param_specs(cfg: ModelConfig) -> dict:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.padded_vocab),
                                      ("embed", "vocab"),
                                      lambda g, s, d: normal_init(g, s, d, 0.02))
+    if cfg.num_meta_tokens:
+        specs["meta_tokens"] = ParamSpec((cfg.num_meta_tokens, cfg.d_model),
+                                         (None, "embed"),
+                                         lambda g, s, d: normal_init(g, s, d, 0.02))
     return specs
 
 
@@ -112,15 +119,18 @@ def lm_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Ten
 
 def _run_segment(cfg: ModelConfig, seg: Segment, seg_params: dict, x,
                  ctx: BlockCtx, cache_seg: Optional[dict]):
-    """Run one homogeneous segment layer by layer.  cache_seg holds
-    [count, ...] tensors or is None.  Entries a block updated in place come
-    back as the segment's own tensors; new per-layer entries are stacked.
-    In training with ``cfg.remat == "full"`` each layer runs under
-    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of the
-    scan body): only its input is kept, and its forward runs again in the
-    backward."""
+    """Run one homogeneous segment layer by layer -> (x, cache, aux).
+
+    cache_seg holds [count, ...] tensors or is None.  Entries a block
+    updated in place come back as the segment's own tensors; new per-layer
+    entries are stacked.  ``aux`` sums each layer's aux losses in fp32
+    (empty where the blocks have none).  In training with ``cfg.remat ==
+    "full"`` each layer runs under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint`` of the scan body): only its input is kept,
+    and its forward runs again in the backward."""
     old_layers: List[dict] = []
     new_layers: List[dict] = []
+    aux_sum: Dict[str, torch.Tensor] = {}
     remat = ctx.mode == "train" and cfg.remat == "full"
     for i in range(seg.count):
         layer_p = tree_map(lambda a: a[i], seg_params)
@@ -129,22 +139,46 @@ def _run_segment(cfg: ModelConfig, seg: Segment, seg_params: dict, x,
         if remat:
             # the layer's own tree and context, bound now: the recompute
             # runs in the backward, after this loop has moved on
-            x = checkpoint(lambda x_, p_=layer_p, c_=lctx: block_apply(cfg, seg, p_, x_, c_)[0],
-                           x, use_reentrant=False)
+            x, aux = checkpoint(
+                lambda x_, p_=layer_p, c_=lctx: block_apply(cfg, seg, p_, x_, c_)[0::2],
+                x, use_reentrant=False)
             new_cache = None
         else:
-            x, new_cache, _ = block_apply(cfg, seg, layer_p, x, lctx)
+            x, new_cache, aux = block_apply(cfg, seg, layer_p, x, lctx)
+        for k, v in aux.items():
+            aux_sum[k] = aux_sum[k] + v.float() if k in aux_sum else v.float()
         old_layers.append(cache_l)
         new_layers.append(new_cache)
     if cache_seg is None or new_layers[0] is None:
-        return x, cache_seg
+        return x, cache_seg, aux_sum
     out = {}
     for key in new_layers[0]:
         if all(new[key] is old.get(key) for new, old in zip(new_layers, old_layers)):
             out[key] = cache_seg[key]              # written in place
         else:
             out[key] = torch.stack([new[key] for new in new_layers])
-    return x, out
+    return x, out, aux_sum
+
+
+def _input_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  positions: Optional[torch.Tensor]):
+    """(x [B,S',d], positions [B,S'], default) with the meta-token prefix
+    ahead of the tokens (S' = num_meta_tokens + S): the prefix takes
+    positions 0..m-1 and the tokens' positions move up by m.  ``default``
+    says the positions are ``0..S'-1`` in every row (the caller passed
+    none), which the flash_attention prefill needs."""
+    x = embed_tokens(cfg, params, tokens)
+    b, s = tokens.shape
+    default = positions is None
+    if default:
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    m = cfg.num_meta_tokens
+    if m:
+        meta = params["meta_tokens"].to(x.dtype).expand(b, m, cfg.d_model)
+        x = torch.cat([meta, x], dim=1)
+        mpos = torch.arange(m, dtype=positions.dtype, device=positions.device).expand(b, m)
+        positions = torch.cat([mpos, positions + m], dim=1)
+    return x, positions, default
 
 
 # ------------------------------------------------------------------ forward
@@ -154,24 +188,31 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward -> (hidden [B,S,d] after the final norm, aux).
 
-    ``aux`` holds the MoE losses in the JAX package; the dense decoder has
-    none, so it is empty.  Attention takes the plain dense or chunked path
+    ``aux`` holds an MoE model's ``moe_lb_loss``, ``moe_z_loss`` and
+    ``moe_drop_frac``, each summed over
+    the layers and divided by ``num_layers``, as the JAX package does; a
+    model without experts returns ``{}``.  The meta-token prefix (hymba)
+    is stripped from the hidden, so the loss sees the input's length.
+    Attention takes the plain dense or chunked path
     (``models/layers.py``), whose chunked form has the flash-style
     backward; the ``flash_attention`` kernel has no backward and is not
     used here.
     """
     _check_supported(cfg)
     params = cast_params(cfg, params)
-    tokens = batch["tokens"]
-    x = embed_tokens(cfg, params, tokens)
-    b, s = tokens.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    x, positions, _ = _input_hidden(cfg, params, batch["tokens"], batch.get("positions"))
     ctx = BlockCtx(mode="train", positions=positions)
+    aux_total: Dict[str, torch.Tensor] = {}
     for i, seg in enumerate(cfg.decoder_plan()):
-        x, _ = _run_segment(cfg, seg, params["segments"][i], x, ctx, None)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), {}
+        x, _, aux = _run_segment(cfg, seg, params["segments"][i], x, ctx, None)
+        for k, v in aux.items():
+            aux_total[k] = aux_total[k] + v if k in aux_total else v
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.num_meta_tokens:
+        x = x[:, cfg.num_meta_tokens:]
+    if cfg.num_experts <= 0:
+        return x, {}
+    return x, {k: v / float(cfg.num_layers) for k, v in aux_total.items()}
 
 
 # -------------------------------------------------------------------- cache
@@ -196,19 +237,13 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: list
     """Run the prompt, writing caches.  Returns (last hidden [B,d], cache)."""
     _check_supported(cfg)
     params = cast_params(cfg, params)
-    tokens = batch["tokens"]
-    x = embed_tokens(cfg, params, tokens)
-    b, s = tokens.shape
-    positions = batch.get("positions")
-    default_positions = positions is None
-    if default_positions:
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=tokens.device).expand(b, s)
+    x, positions, default_positions = _input_hidden(cfg, params, batch["tokens"],
+                                                    batch.get("positions"))
     ctx = BlockCtx(mode="prefill", positions=positions,
                    default_positions=default_positions)
     new_caches = []
     for i, seg in enumerate(cfg.decoder_plan()):
-        x, nc = _run_segment(cfg, seg, params["segments"][i], x, ctx, cache[i])
+        x, nc, _ = _run_segment(cfg, seg, params["segments"][i], x, ctx, cache[i])
         new_caches.append(nc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, -1], new_caches
@@ -230,7 +265,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list,
     ctx = BlockCtx(mode="decode", positions=cur_pos[:, None], cur_pos=cur_pos)
     new_caches = []
     for i, seg in enumerate(cfg.decoder_plan()):
-        x, nc = _run_segment(cfg, seg, params["segments"][i], x, ctx, cache[i])
+        x, nc, _ = _run_segment(cfg, seg, params["segments"][i], x, ctx, cache[i])
         new_caches.append(nc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, x[:, 0]), new_caches

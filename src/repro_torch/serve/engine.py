@@ -247,24 +247,25 @@ class ServeEngine:
     # --------------------------------------------------------------- caches
 
     def _init_caches(self) -> list:
-        """Per segment: the page pools [count, P, ps, KVH, D] and the
-        table/len rows every layer of the segment reads (one [B, ...]
-        tensor expanded over the layer axis, rewritten each step)."""
+        """Per attention segment: the page pools [count, P, ps, KVH, D] and
+        the table/len rows every layer of the segment reads (one [B, ...]
+        tensor expanded over the layer axis, rewritten each step); a hymba
+        segment adds its lanes' Mamba state, ``ssm`` [count, B, d_inner, N]
+        fp32 and ``conv`` [count, B, d_conv - 1, d_inner].  A purely
+        recurrent segment holds per-lane state only (``block_cache_init``
+        raises for the xLSTM kinds, which are not ported yet)."""
         e = self.ecfg
         dt = torch_dtype(self.cfg.compute_dtype)
         dev = self.device
         caches = []
         for seg in self.plan:
-            if not seg.has_attention or seg.has_mamba:
-                # per-lane recurrent state (block_cache_init raises for the
-                # recurrent kinds until the model zoo is ported)
-                layer = block_cache_init(self.cfg, seg, e.max_batch, 8, dt, dev)
-                caches.append({k: t.unsqueeze(0).repeat((seg.count,) + (1,) * t.dim())
-                               for k, t in layer.items()})
+            if not seg.has_attention:
+                caches.append(_stacked(block_cache_init(self.cfg, seg, e.max_batch, 8,
+                                                        dt, dev), seg.count))
                 continue
             shape = (seg.count, e.num_pages, e.page_size,
                      self.cfg.num_kv_heads, self.cfg.head_dim)
-            caches.append({
+            c = {
                 "k_pool": torch.zeros(shape, dtype=dt, device=dev),
                 "v_pool": torch.zeros(shape, dtype=dt, device=dev),
                 "table": torch.zeros((e.max_batch, e.max_pages_per_seq),
@@ -272,7 +273,11 @@ class ServeEngine:
                                      ).expand(seg.count, -1, -1),
                 "len": torch.zeros(e.max_batch, dtype=torch.int32,
                                    device=dev).expand(seg.count, -1),
-            })
+            }
+            if seg.has_mamba:
+                mc = block_cache_init(self.cfg, seg, e.max_batch, 8, dt, dev)
+                c.update(_stacked({k: mc[k] for k in ("ssm", "conv")}, seg.count))
+            caches.append(c)
         return caches
 
     # ------------------------------------------------------- prefix sharing
@@ -504,6 +509,14 @@ class ServeEngine:
         Recurrent segments (mamba/mlstm/slstm) carry state, so right-padding
         would corrupt it — those archs prefill at exact length; pure-attention
         archs pad to the compile bucket (causality makes padding harmless).
+
+        The cache keeps every prefilled position of every attention
+        segment, a windowed one too: its pages must hold each position the
+        install reads (``[:, 0, a0:eff]``), and ``paged_attention`` applies
+        the window at decode.  (The JAX package prefills into
+        ``init_cache``'s ring of ``window`` slots and installs that ring as
+        if it held positions in order, which past the window puts the wrong
+        keys in the pages; ROADMAP.md, divergences of the reference.)
         """
         e = self.ecfg
         S = len(prompt)
@@ -516,8 +529,11 @@ class ServeEngine:
                          -(-S // e.prefill_bucket) * e.prefill_bucket)
         tokens = np.zeros((1, bucket), np.int32)
         tokens[0, :S] = prompt
-        cache = T.init_cache(self.cfg, 1, bucket + 8 + self.cfg.num_meta_tokens,
-                             device=self.device)
+        dt = torch_dtype(self.cfg.compute_dtype)
+        cache = [_stacked(block_cache_init(self.cfg, dataclasses.replace(seg, window=None), 1,
+                                           bucket + 8 + self.cfg.num_meta_tokens, dt,
+                                           self.device), seg.count)
+                 for seg in self.plan]
         _, cache = T.prefill(self.cfg, self.params,
                              {"tokens": torch.from_numpy(tokens).to(self.device)},
                              cache)
@@ -583,7 +599,9 @@ class ServeEngine:
             # move prefilled contiguous KV into pool pages for this lane
             k = cache[i]["k"][:, 0, a0:eff]
             v = cache[i]["v"][:, 0, a0:eff]
-            self._caches[i] = _install_pages(c, k, v, pages[a0 // ps:], ps)
+            self._caches[i] = _install_pages(
+                c, k, v, pages[a0 // ps:], ps, lane=lane,
+                prior_state=cache[i] if seg.has_mamba else None)
         self.active[req.rid] = req
         self.lane_of[req.rid] = lane
         self.seq_len[req.rid] = eff
@@ -863,24 +881,33 @@ class ServeEngine:
 # ---------------------------------------------------------------- helpers
 
 
-def _install_pages(cache, k, v, pages, page_size):
+def _install_pages(cache, k, v, pages, page_size, lane=None, prior_state=None):
     """Scatter contiguous prefilled KV [L, S, KVH, D] into pool pages, in
     place: one layered ``page_scatter`` per pool reads the KV where it lies
     (any layer stride) and writes zeros past S in the last page, as the JAX
     package pads it.  ``pages`` lists the physical pages receiving the S
     positions (S == 0 writes nothing — the whole span was prefix-shared).
-    Returns ``cache``.
+    With ``prior_state`` (a hymba segment's prefill cache) the prefilled
+    Mamba state (``ssm``, ``conv``) is copied into engine lane ``lane``, in
+    place.  Returns ``cache``.
     """
     S = k.shape[1]
-    if not S:
-        return cache
-    n_pages = -(-S // page_size)
-    idx = torch.tensor(pages[:n_pages], dtype=torch.int32,
-                       device=cache["k_pool"].device)
-    for name, src in (("k_pool", k), ("v_pool", v)):
-        pool = cache[name]
-        page_scatter(pool_rows(pool), idx, token_rows(src.to(pool.dtype)))
+    if S:
+        n_pages = -(-S // page_size)
+        idx = torch.tensor(pages[:n_pages], dtype=torch.int32,
+                           device=cache["k_pool"].device)
+        for name, src in (("k_pool", k), ("v_pool", v)):
+            pool = cache[name]
+            page_scatter(pool_rows(pool), idx, token_rows(src.to(pool.dtype)))
+    if prior_state is not None:
+        for key in ("ssm", "conv"):
+            cache[key][:, lane] = prior_state[key][:, 0]
     return cache
+
+
+def _stacked(layer: dict, count: int) -> dict:
+    """One layer's cache slice repeated over a segment's ``count`` layers."""
+    return {k: t.unsqueeze(0).repeat((count,) + (1,) * t.dim()) for k, t in layer.items()}
 
 
 def _copy_page(cache, ids):

@@ -289,6 +289,43 @@ class OOCTrainer:
             mv_cap = min(mv_svc.config.max_lease_run,
                          mv_svc.buffer.num_slots // 2)
             self.chunk_pages = max(1, min(p_cap, mv_cap // 2))
+        self._chunks = [self._leaf_chunks(leaf) for leaf in range(self._num_leaves)]
+
+    def _leaf_chunks(self, leaf: int) -> List[Tuple[int, int]]:
+        """``(first params page, params pages)`` of each sweep chunk of
+        ``leaf``: ``chunk_pages`` at a time, in paged mode cut until both
+        the params run and the moments run fit their buffers' stripes
+        (``lease_run_limit``).  The sweep's result does not depend on the
+        cut: every element is updated alone."""
+        npages = self._p_specs[leaf]["npages"]
+        R = self.chunk_pages
+        if not self.paged:
+            return [(lo, min(R, npages - lo)) for lo in range(0, npages, R)]
+        p_region, mv_region = self._params.region, self.opt.mv.region
+        p_first0 = self._p_specs[leaf]["first_page"]
+        mv_first0 = self._mv_specs[leaf]["first_page"]
+        out, lo = [], 0
+        while lo < npages:
+            n = p_region.service.lease_run_limit(p_region, p_first0 + lo,
+                                                 min(R, npages - lo))
+            while n > 1:
+                mv_first, mv_n = self._mv_span(leaf, lo, n)
+                if mv_region.service.lease_run_limit(
+                        mv_region, mv_first0 + mv_first, mv_n) == mv_n:
+                    break
+                n -= 1
+            out.append((lo, n))
+            lo += n
+        return out
+
+    def _mv_span(self, leaf: int, p_first: int, p_n: int) -> Tuple[int, int]:
+        """(first moments page, moments pages) of the params pages
+        ``[p_first, p_first + p_n)`` of ``leaf``: the interleaved (m, v)
+        of its elements."""
+        n = self._p_specs[leaf]["nbytes"] // 4
+        hi = min(n, (p_first + p_n) * self._pe)
+        mv_first = 2 * p_first                        # 2*lo/pe: page-aligned
+        return mv_first, -(-2 * hi // self._pe) - mv_first
 
     # ------------------------------------------------------------- geometry
 
@@ -373,14 +410,9 @@ class OOCTrainer:
         with no dirty marks, which is only sound because the sweep writes
         views strictly after every grant succeeded.
         """
-        R = self.chunk_pages
         pspec, mvspec = self._p_specs[leaf], self._mv_specs[leaf]
-        p_first = ci * R
-        p_n = min(R, pspec["npages"] - p_first)
-        n = pspec["nbytes"] // 4
-        hi = min(n, (p_first + p_n) * self._pe)
-        mv_first = 2 * p_first                        # 2*lo/pe: page-aligned
-        mv_n = -(-2 * hi // self._pe) - mv_first
+        p_first, p_n = self._chunks[leaf][ci]
+        mv_first, mv_n = self._mv_span(leaf, p_first, p_n)
         if not self.paged:
             p_views = [self._page_resident(self._p_buf,
                                            pspec["first_page"] + p_first + j)
@@ -437,7 +469,7 @@ class OOCTrainer:
 
     def _apply_chunk(self, leaf: int, ci: int) -> None:
         n = self._p_specs[leaf]["nbytes"] // 4
-        lo = ci * self.chunk_pages * self._pe
+        lo = self._chunks[leaf][ci][0] * self._pe
         grads = self._pending["grads"][leaf]
         p_views, mv_views, commit, abort = self._chunk_views(leaf, ci)
         try:
@@ -468,9 +500,8 @@ class OOCTrainer:
 
     def _apply_pending(self) -> None:
         done = self._pending["done"]
-        R = self.chunk_pages
         for leaf in range(self._num_leaves):
-            for ci in range(-(-self._p_specs[leaf]["npages"] // R)):
+            for ci in range(len(self._chunks[leaf])):
                 if (leaf, ci) in done:
                     continue
                 self._apply_chunk(leaf, ci)

@@ -109,32 +109,47 @@ class PagedTree:
     def _count_staging(self, run) -> None:
         self.staging_copies += sum(1 for ls in run if not ls.zero_copy)
 
+    def leaf_chunks(self, leaf: int,
+                    chunk_pages: Optional[int] = None) -> List[Tuple[int, int]]:
+        """``(offset, pages)`` of each lease run covering leaf ``leaf``, in
+        ascending page order: ``chunk_pages`` (default
+        :meth:`max_run_pages`) at a time, each cut to the longest run the
+        service can grant (``lease_run_limit``: no metadata stripe given
+        more pages than it owns slots).  Deterministic given the region
+        and its service."""
+        spec = self.specs[leaf]
+        step = chunk_pages or self.max_run_pages()
+        svc = self.region.service
+        out, off = [], 0
+        while off < spec["npages"]:
+            n = svc.lease_run_limit(self.region, spec["first_page"] + off,
+                                    min(step, spec["npages"] - off))
+            out.append((off, n))
+            off += n
+        return out
+
     def leaf_page_runs(self, leaf: int, write: bool = False,
                        chunk_pages: Optional[int] = None,
                        first_chunk: int = 0) -> Iterator[Tuple[int, Any]]:
         """Yield ``(chunk_index, LeaseRun)`` covering leaf ``leaf``'s pages.
 
-        Chunk boundaries are deterministic (``chunk_pages`` at a time, in
-        ascending page order), which is what lets the chaos-retry path
-        skip chunks already applied.  The caller must release each run
-        (use ``with``) before the next is granted — one live run per
-        region per thread, the no-self-livelock discipline.
+        Chunk boundaries are deterministic (:meth:`leaf_chunks`), which is
+        what lets the chaos-retry path skip chunks already applied.  The
+        caller must release each run (use ``with``) before the next is
+        granted — one live run per region per thread, the no-self-livelock
+        discipline.
         """
-        spec = self.specs[leaf]
-        step = chunk_pages or self.max_run_pages()
-        for ci, off in enumerate(range(0, spec["npages"], step)):
+        first = self.specs[leaf]["first_page"]
+        for ci, (off, n) in enumerate(self.leaf_chunks(leaf, chunk_pages)):
             if ci < first_chunk:
                 continue
-            n = min(step, spec["npages"] - off)
-            run = self.region.lease_run(spec["first_page"] + off, n,
-                                        write=write)
+            run = self.region.lease_run(first + off, n, write=write)
             self._count_staging(run)
             yield ci, run
 
     def num_chunks(self, leaf: int,
                    chunk_pages: Optional[int] = None) -> int:
-        step = chunk_pages or self.max_run_pages()
-        return -(-self.specs[leaf]["npages"] // step)
+        return len(self.leaf_chunks(leaf, chunk_pages))
 
     # ------------------------------------------------------------ snapshot
 
@@ -147,9 +162,7 @@ class PagedTree:
         spec = self.specs[leaf]
         out = np.empty(spec["npages"] * self.region.page_size, np.uint8)
         ps = self.region.page_size
-        step = self.max_run_pages()
-        for off in range(0, spec["npages"], step):
-            n = min(step, spec["npages"] - off)
+        for off, n in self.leaf_chunks(leaf):
             with self.region.lease_run(spec["first_page"] + off, n,
                                        exclude_writers=True) as run:
                 self._count_staging(run)

@@ -137,6 +137,30 @@ def test_paged_attention_kernel_heads_and_widths(cuda, dtype, b, h, nh, kvh, d, 
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,nh,kvh,d,ps,pps,window,lengths", [
+    # hymba-1.5b: 25 real heads of 32 over 5 (rep 5), D 64, window 1024
+    (6, 32, 25, 5, 64, 16, 128, 1024, [0, 1, 1000, 1024, 1025, 2048]),
+    (4, 32, 25, 5, 64, 16, 128, 1024, [1023, 1031, 1900, 2040]),
+    # mixtral-8x7b: 32 heads over 8, D 128, window 4096
+    (4, 32, 32, 8, 128, 16, 300, 4096, [4095, 4096, 4097, 4800]),
+    (3, 32, 32, 8, 128, 16, 300, 4096, [17, 2500, 4600]),
+    # a window that is not a page multiple, across split edges
+    (5, 8, 8, 2, 128, 16, 64, 300, [1, 299, 300, 301, 1024]),
+])
+def test_paged_attention_kernel_window(cuda, dtype, b, h, nh, kvh, d, ps, pps, window,
+                                       lengths):
+    """Windowed decode against the plain version, lengths below, at and far
+    past the window: only positions [len - window, len) are visible."""
+    args = attention_inputs(13, dtype, cuda, b, h, kvh, d, b * pps + 3, ps, pps, lengths)
+    before = K.launch_counts["paged_attention"]
+    got = attn_ops.paged_attention(*args, num_heads=nh, window=window)
+    want = paged_attention_ref(*args, num_heads=nh, window=window)
+    torch.cuda.synchronize()
+    assert K.launch_counts["paged_attention"] == before + 1
+    check_against_plain(got, want, dtype, nh, lengths)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_kernel_unaligned_pool(cuda, dtype):
     """A pool that does not start on 16 bytes takes the plain loads."""
     b, h, kvh, d, pages, ps, pps = 2, 8, 2, 64, 40, 16, 16
@@ -459,6 +483,39 @@ def test_engine_long_prompts_on_the_card_match_the_cpu(cuda):
     assert K.launch_counts["flash_attention"] == 4 * cfg.num_layers
     assert out["cuda"] == out["cpu"]
     assert all(r.prefill_ms > 0 for r in eng.finished) and not eng._pending_prefills
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b"])
+def test_zoo_engine_on_the_card_matches_the_cpu(cuda, arch):
+    """The MoE and hybrid smoke models (fp32, windows of 8): the engine on
+    the card, prompts past the window, a prefix and copy-on-write,
+    generates the CPU engine's tokens; windowed decode goes through the
+    kernel."""
+    import repro_torch.models as M
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(1, cfg.vocab_size, 6).astype(np.int32)
+    prompts = [prefix.copy(), np.concatenate([prefix, rng.integers(1, cfg.vocab_size, 9)])] + [
+        rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32) for n in (3, 17, 30)]
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = ServeEngine(cfg, params, EngineConfig(
+            max_batch=3, page_size=4, num_pages=128, max_pages_per_seq=16,
+            prefill_bucket=8), device=dev)
+        eng.register_prefix(prefix)
+        K.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p.astype(np.int32), max_new_tokens=8))
+        eng.run_until_drained(max_steps=500)
+        out[str(dev)] = [r.generated for r in sorted(eng.finished, key=lambda r: r.rid)]
+        assert eng.stats["cow_copies"] > 0 and eng.allocator.used_pages == 1 + len(
+            next(iter(eng._prefixes.values())).pages)
+    assert K.launch_counts["paged_attention"] > 0 and K.launch_counts["flash_attention"] > 0
+    assert out["cuda"] == out["cpu"]
 
 
 def check_flash(got, want, dtype, nh):

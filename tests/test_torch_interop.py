@@ -64,7 +64,9 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "repro_torch.train.train_step", "repro_torch.train.trainer",
                 "repro_torch.train.paged_state", "repro_torch.train.ooc",
                 "repro_torch.ckpt.checkpoint", "repro_torch.data.pipeline",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.models.moe",
+                "repro_torch.models.ssm", "repro_torch.configs.hymba_1p5b",
+                "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.phi3p5_moe"):
         assert mod in res["imported"], f"{mod} was not walked"
 
 
@@ -155,8 +157,12 @@ def test_registry_offers_only_ported_architectures():
     assert get_config("qwen2-1.5b").head_dim == 128
     assert get_config("llama3-8b").num_kv_heads == 8
     assert not get_config("deepseek-7b").tie_embeddings
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("mixtral-8x7b")
+    assert get_config("mixtral-8x7b").num_experts == 8
+    assert get_config("phi3.5-moe-42b-a6.6b").num_experts == 16
+    assert get_config("hymba-1.5b").num_meta_tokens == 128
+    for arch in ("xlstm-1.3b", "qwen2-vl-7b", "seamless-m4t-medium"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

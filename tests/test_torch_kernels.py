@@ -129,6 +129,51 @@ def test_paged_attention_split_plan(pps, ps, b, kvh, want):
         split_plan(MAX_SPLITS * MAX_SPLIT_PAGES + 1, ps, b, kvh, 132)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_window_matches_jax_decode_attention(dtype):
+    """The plain windowed version against the JAX package's paged decode
+    (``_gather_paged`` + ``decode_attention``, which applies the window):
+    a window of 6 over pages of 4 (not a page multiple), lengths below, at
+    and past the window, 5 query heads a KV head."""
+    from repro.models.blocks import _gather_paged as jax_gather_paged
+    from repro.models.layers import decode_attention as jax_decode_attention
+
+    window = 6
+    jx, tt = attention_inputs(11, dtype, 4, 10, 2, 16, 40, 4, 9, lengths=[3, 6, 17, 36])
+    q, kp, vp, table, lengths = jx
+    kc, vc, kpos, cur = jax_gather_paged({"k_pool": kp, "v_pool": vp, "table": table,
+                                          "len": lengths})
+    want = jax_decode_attention(q[:, None], kc, vc, kpos, cur, window)[:, 0]
+    got = attn_ops.paged_attention(*tt, window=window)
+    np.testing.assert_allclose(to_f32(got), to_f32(want), **TOL[dtype])
+    # the window binds: without it rows 2 and 3 differ
+    full = attn_ops.paged_attention(*tt)
+    torch.testing.assert_close(full[:2], got[:2], rtol=0, atol=0)
+    assert not torch.allclose(full[2:].float(), got[2:].float(), atol=1e-2)
+
+
+@pytest.mark.parametrize("pps,ps,window,want", [
+    (300, 16, None, (18, 17)),      # mixtral's heads (B 4, KVH 8) over a 4.8 k table
+    (300, 16, 4096, (16, 17)),      # its window: 257 of the 300 pages
+    (264, 16, 4096, (16, 17)),
+    (512, 16, 1024, (8, 9)),        # a 1024 window: 65 pages of 16
+    (512, 16, 1025, (8, 9)),        # 65 pages: ceil(1024 / 16) + 1
+    (200, 16, 8192, (12, 17)),      # a window wider than the table: the table's plan
+    (8, 4, 6, (3, 1)),              # ceil(5 / 4) + 1 = 3 pages, one split
+])
+def test_paged_attention_split_plan_covers_the_window(pps, ps, window, want):
+    """With a window the splits cover only the pages the window can span,
+    min(pps, ceil((window - 1) / ps) + 1), still from shapes alone (B 4,
+    KVH 8, 132 SMs)."""
+    from repro_torch.kernels.paged_attention.kernel import visible_pages
+
+    span = visible_pages(pps, ps, window)
+    assert span == (pps if window is None else min(pps, -(-(window - 1) // ps) + 1))
+    per, splits = split_plan(pps, ps, 4, 8, 132, window)
+    assert (per, splits) == want
+    assert (splits - 1) * per < span <= splits * per
+
+
 def test_paged_attention_impl_switch():
     _, tt = attention_inputs(3, "float32", 2, 4, 2, 16, 8, 4, 2)
     torch.testing.assert_close(attn_ops.paged_attention(*tt, impl="ref"),

@@ -8,8 +8,11 @@ through ``params=``:
   ``interleave_moments`` / ``split_moments`` equal to the reference's;
 * within the port, bitwise: ``OOCTrainer`` paged against resident at two
   page sizes x two oversubscriptions and at a one-page sweep chunk, with
-  no staging copy; a run through transient ``ChaosStore`` faults against
-  one without;
+  no staging copy; at 4 and 8 KiB pages x 4 with 16 metadata stripes,
+  where lease runs put more pages on a stripe than it owns and the
+  reference's own ``TestDifferential`` never finishes (the sweep's chunks
+  are now cut to fit); a run through transient ``ChaosStore`` faults
+  against one without;
 * the port's paged ``OOCTrainer`` against the reference's paged one over
   three steps: losses rtol 1e-5, parameters atol 5e-5 + rtol 1e-5, m and v
   within 1e-4 of their norm (the tolerances of ``test_torch_train.py``);
@@ -158,14 +161,6 @@ def test_interleave_and_split_moments_match_reference(ref_params):
 # ---------------------------------------------------------- differential
 
 
-# Every lease run of these geometries fits the page buffer's stripes.  The
-# paging core (a copy of the JAX package's) keeps a free-slot list per
-# metadata stripe and maps page p to stripe hash((region, p)) % stripes; a
-# lease run with more pages on one stripe than the stripe owns slots is
-# never granted and lease_run retries forever.  With 16 stripes (8
-# hardware threads) that happens at 4x with 4 KiB pages and at 3-4x with
-# 8 KiB pages on this model, in the reference's own
-# tests/test_train_ooc.py::TestDifferential too (ROADMAP.md, Queue 3).
 @pytest.mark.parametrize("page_size,oversub", [
     (PAGE // 2, 2), (PAGE // 2, 3), (PAGE, 2), (PAGE, 3)])
 def test_paged_is_bitwise_resident(ref_params, resident, page_size, oversub):
@@ -180,6 +175,35 @@ def test_paged_is_bitwise_resident(ref_params, resident, page_size, oversub):
         # every lease on the training path was a direct page-buffer view
         assert tr.staging_copies == 0
         assert tr.stats["sweep_chunks"] > 0 and tr.stats["last_sweep_s"] > 0
+    finally:
+        tr.close()
+
+
+@pytest.mark.parametrize("page_size", [PAGE, 2 * PAGE])
+def test_paged_is_bitwise_resident_where_runs_overflow_a_stripe(ref_params, resident,
+                                                                monkeypatch, page_size):
+    """The reference's TestDifferential geometries that never finish on an
+    8-thread host (4x oversubscription, 4 and 8 KiB pages).  The paging
+    core keeps a free-slot list per metadata stripe (page p on stripe
+    hash((region, p)) % stripes); a lease run with more pages on one stripe
+    than the stripe owns slots was never granted, and lease_run retried it
+    forever.  With 8 hardware threads (16 stripes, whatever this host has)
+    the planned sweep chunks and snapshot runs are now cut to fit."""
+    monkeypatch.setattr(TC.config.os, "cpu_count", lambda: 8)
+    ref_state, ref_losses = resident
+    tr = make(ref_params, paged=True, page_size=page_size,
+              ocfg_kw=paged_kw(ref_params, page_size, 4))
+    assert tr.oversubscription() >= 4 * 0.95
+    try:
+        assert len(tr.opt.mv.region.service.shards) == min(
+            16, tr.opt.mv.region.service.buffer.num_slots // 4)
+        # some chunk was cut short of chunk_pages before its leaf's end
+        assert any(n < tr.chunk_pages and lo + n < spec["npages"]
+                   for chunks, spec in zip(tr._chunks, tr._p_specs) for lo, n in chunks)
+        losses = steps(tr)
+        assert losses == ref_losses
+        assert_state_equal(within(tr.state_dict), ref_state)
+        assert tr.staging_copies == 0
     finally:
         tr.close()
 
