@@ -42,7 +42,10 @@ Phases, each printing one JSON line:
             4096 tokens (q [1,32,4096,128] over 8 KV heads), smollm's at
             2048 (D 64), and phase 9's windowed prefills (hymba-1.5b's heads
             over 1600 prompt + 128 meta tokens, window 1024; mixtral-8x7b's
-            4600-token prompt, window 4096), its inputs strided views as
+            4600-token prompt, window 4096), and phase 10's (seamless-m4t's
+            encoder, q [1,16,1200,64], and cross-attention, q [4,16,32,64]
+            over 1200 keys, both non-causal; qwen2-vl's 1536-token prompt,
+            q [1,32,1536,128], 28 of 32 heads over 4), its inputs strided views as
             the model hands them over, and besides each output row within
             1e-2 (bf16) / 2e-5
             (fp32) of the plain row's norm.  Where bf16 takes the hopper
@@ -178,14 +181,52 @@ Phases, each printing one JSON line:
             of the shortest request within tolerance of a teacher-forced
             contiguous decode's maximum logit.  Each model is freed before
             the next.
+10. zoo_rest the rest of the zoo at full width, nothing cut (bf16, random
+            weights from seed 0 made on the card), each freed before the
+            next, every count zeroed just before its traffic and read just
+            after.  xlstm-1.3b (48 blocks, d_model 2048, 4 heads: 42 mLSTM,
+            6 sLSTM) through ``ServeEngine``: first the fp32 check at 8 of
+            48 blocks (block 7 the first sLSTM), one lane, a 600-token
+            prompt x 8 new, engine tokens equal to contiguous prefill +
+            decode; then 4 prompts of 256/700/1300/2048 tokens x 16 new,
+            batch 4 (no kernel of the port on its path: none may launch),
+            the bf16 tokens of the shortest within tolerance of a
+            teacher-forced contiguous decode's maximum logit, a profiled
+            decode step with 4 lanes and a profiled 2048-token prefill with
+            the sLSTM loop's and the mLSTM chunk scan's device ms (on the
+            first 8 blocks, the unit the 48 repeat).
+            qwen2-vl-7b (28 layers, d_model 3584, 28 heads padded to 32
+            over 4, D 128, M-RoPE 16/24/24) through ``prefill`` on 1536
+            patch embeddings then ``decode_step`` on text tokens, batch 1:
+            positions whose three rows are the index (the kernel route) and
+            256 text + a 32 x 32 image block + 256 text (the plain route),
+            each x 16 greedy tokens; the first decode step's logits against
+            ``forward_train`` over prompt + token, in fp32 at 2 of 28 layers
+            (rtol 2e-3 / atol 2e-4, ``tests/test_extras.py``) and in bf16
+            at full width (its argmax within 3e-2 of the full forward's top
+            logit, as phase 9's bf16 check; the row's error printed);
+            one prefill on each route, its 28 ``flash_attention`` launches
+            all hopper.  seamless-m4t-medium (12 + 12 layers, d_model 1024,
+            16 heads, GELU d_ff 4096, vocab 256206): batch 4 of 1200 frames
+            with 32-token decoder prompts and one request of 400 frames
+            alone, x 32 new; the fp32 check at full width (first decode
+            step against ``forward_train``, rtol 2e-3 / atol 2e-4), each
+            bf16 token within tolerance of a teacher-forced
+            ``forward_train``'s top logit, 36 ``flash_attention`` launches a
+            prefill (encoder and cross non-causal, decoder causal), all
+            hopper.  Prints prefill (and encode) ms, decode tok/s, peak
+            memory and the counts.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
 3.35 TB/s or operations over the peak rate, whichever is larger; for
 flash_attention also the variant taken and each variant's time; for the
 page copies the parent call pattern's time and the launches by variant;
-phase 9's launches by model, and for paged_attention and flash_attention its
-windowed phase-2 cases with the launches of the model each stands for), the card's
+phase 9's and phase 10's launches by model, and for paged_attention and
+flash_attention its phase-2 cases at phase 9's and phase 10's shapes with the
+launches of the model each stands for; for flash_attention also phase 10's
+launches by variant and by mask and the prefills that took the plain
+route), the card's
 name and power limit from nvidia-smi, and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises before that line (non-zero exit).  Without a
 CUDA card, or without the rest of the repository beside it, it exits
@@ -324,9 +365,35 @@ FLASH_CASES = {
     "hymba_1728_w1024": (1, 32, 25, 5, 1728, 1728, 64, True, 1024),
     "mixtral_4600_w4096": (1, 32, 32, 8, 4600, 4600, 128, True, 4096),
 }
-# the phase-2 cases at phase 9's shapes, and the model whose run they stand for
+FLASH_CASES.update({
+    # phase 10's prefills: seamless-m4t's encoder over 1200 frames and its
+    # decoder's cross-attention (batch 4, 32-token prompts, MHA, D 64), both
+    # without a mask; qwen2-vl's 1536-token prompt (28 of 32 heads over 4)
+    "seamless_enc_1200": (1, 16, 16, 16, 1200, 1200, 64, False, None),
+    "seamless_cross_32x1200": (4, 16, 16, 16, 32, 1200, 64, False, None),
+    "qwen2vl_1536": (1, 32, 28, 4, 1536, 1536, 128, True, None),
+})
+# the phase-2 cases at phase 9's and phase 10's shapes, and the model whose
+# run they stand for
 ZOO_PAGED_CASES = {"hymba_window": "hymba-1.5b", "mixtral_window": "mixtral-8x7b"}
-ZOO_FLASH_CASES = {"hymba_1728_w1024": "hymba-1.5b", "mixtral_4600_w4096": "mixtral-8x7b"}
+ZOO_FLASH_CASES = {"hymba_1728_w1024": "hymba-1.5b", "mixtral_4600_w4096": "mixtral-8x7b",
+                   "seamless_enc_1200": "seamless-m4t-medium",
+                   "seamless_cross_32x1200": "seamless-m4t-medium",
+                   "qwen2vl_1536": "qwen2-vl-7b"}
+# phase 10: the rest of the zoo at full width, nothing cut (bf16, random
+# weights from seed 0 made on the card).  xlstm-1.3b through ServeEngine:
+# its prompts x ZOO_NEW_TOKENS, batch 4; the fp32 check at 8 of 48 blocks
+# (block 7 the first sLSTM), one lane, a 600-token prompt x 8 new.
+# qwen2-vl-7b: 1536-token prompts, batch 1, x 16 text tokens; an image block
+# of 32 x 32 between 256 text tokens on each side; the fp32 check at 2 of
+# 28 layers.  seamless-m4t-medium: batch 4 of 1200 frames and a request of
+# 400 frames alone, 32-token decoder prompts, x 32 new.
+XLSTM_LENS = [256, 700, 1300, 2048]
+XLSTM_FP32 = (8, 600)
+VLM_PROMPT, VLM_TEXT, VLM_GRID, VLM_NEW = 1536, 256, 32, 16
+VLM_FP32_LAYERS = 2
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_ALONE, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1200, 400, 32, 32
+EXTRAS_TOL = dict(rtol=2e-3, atol=2e-4)     # tests/test_extras.py, fp32
 
 
 def emit(obj) -> None:
@@ -2073,6 +2140,405 @@ def phase_zoo(torch, M, K):
     return launches
 
 
+# ----------------------------------------------------------------- phase 10
+
+
+def logits_close(got, want, tol, top_only=False):
+    """(ok, max |err|, ||err|| / ||want||) of two logit rows: each entry
+    within atol + rtol |want|; with ``top_only`` (a bf16 row through a
+    full-width model, the zoo's bf16 check) ``got``'s argmax within atol +
+    rtol |max| of ``want``'s top logit."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rel = (err.norm() / want.norm()).item()
+    if top_only:
+        top = want.max()
+        ok = (top - want[got.argmax()]).item() <= tol["atol"] + tol["rtol"] * abs(top.item())
+    else:
+        ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
+    return ok, err.max().item(), rel
+
+
+def top_gaps(torch, logits, tokens):
+    """Per position, how far the chosen token's logit lies below the top
+    one, and whether it is within the bf16 tolerance of it."""
+    tol = TOL["bfloat16"]
+    top = logits.max(dim=-1).values
+    chosen = logits.gather(-1, tokens[..., None].long())[..., 0]
+    gaps = (top - chosen).float()
+    ok = bool((gaps <= tol["atol"] + tol["rtol"] * top.abs().float()).all())
+    return ok, gaps.max().item(), int((gaps == 0).sum().item())
+
+
+def count_flash_calls(blocks_module, calls):
+    """``blocks.flash_attention`` counting its calls by mask while active."""
+    def wrap(fn):
+        def inner(q, k, v, causal=True, **kw):
+            calls["causal" if causal else "non_causal"] += 1
+            return fn(q, k, v, causal=causal, **kw)
+        return inner
+    return Patched(blocks_module, "flash_attention", wrap)
+
+
+def reset_counts(torch, K, FK, T):
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    FK.reset_variant_counts()
+    T.reset_prefill_routes()
+
+
+def read_counts(torch, K, FK, T, calls):
+    return {"launches": dict(K.launch_counts), "flash_attention_variants": dict(FK.variant_counts),
+            "flash_attention_calls": dict(calls), "prefill_routes": dict(T.prefill_routes),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def xlstm_rest(torch, M, K, FK, T, blocks_module):
+    """xlstm-1.3b through ServeEngine: the fp32 check (8 of 48 blocks, one
+    lane, bucket 1: engine tokens equal to contiguous prefill + decode),
+    then the bf16 traffic with every count zeroed just before and read just
+    after, a profiled decode step with 4 live lanes and a profiled
+    2048-token prefill of the model's repeating unit (8 blocks) with the
+    sLSTM loop's and the mLSTM chunk scan's device ms."""
+    import numpy as np
+
+    import repro_torch.models.xlstm as xlstm_module
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    cfg = get_config("xlstm-1.3b")
+    t0 = time.perf_counter()
+    layers, n = XLSTM_FP32
+    cfg32 = cfg.replace(num_layers=layers, compute_dtype="float32")
+    plan = [(seg.kind, seg.count) for seg in cfg32.decoder_plan()]
+    check(plan == [("mlstm", 7), ("slstm", 1)], f"xlstm fp32 check: plan {plan}")
+    p32 = device_params(torch, cfg32, torch.float32)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, size=n).astype(np.int32)
+    req = Request(rid=0, max_new_tokens=8, deadline_s=900.0, prompt=prompt)
+    pages = -(-(n + 9) // 16) + 2
+    serve_timed(torch, cfg32, p32, EngineConfig(
+        max_batch=1, page_size=16, num_pages=pages + 1, max_pages_per_seq=pages,
+        prefill_bucket=1), [req])
+    ref, _ = contiguous_decode(torch, M, cfg32, p32, prompt, 8)
+    check(ref == req.generated,
+          f"xlstm fp32 ({layers} blocks): engine {req.generated} != contiguous decode {ref}")
+    fp32 = {"blocks": layers, "plan": plan, "prompt_tokens": n, "tokens_equal": len(ref)}
+    del p32
+    torch.cuda.empty_cache()
+
+    params = device_params(torch, cfg, torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+    ecfg = EngineConfig(max_batch=4, page_size=16, num_pages=400, max_pages_per_seq=136,
+                        prefill_bucket=32)
+    rng = np.random.default_rng(0)
+    serve_timed(torch, cfg, params, ecfg, [Request(              # cuBLAS, allocator
+        rid=0, max_new_tokens=2, deadline_s=900.0,
+        prompt=rng.integers(0, cfg.vocab_size, size=200).astype(np.int32))])
+    reqs = [Request(rid=i, max_new_tokens=ZOO_NEW_TOKENS, deadline_s=900.0,
+                    prompt=rng.integers(0, cfg.vocab_size, size=k).astype(np.int32))
+            for i, k in enumerate(XLSTM_LENS)]
+    calls = {"causal": 0, "non_causal": 0}
+    reset_counts(torch, K, FK, T)
+    with count_flash_calls(blocks_module, calls):
+        eng, seconds = serve_timed(torch, cfg, params, ecfg, reqs)
+    counts = read_counts(torch, K, FK, T, calls)
+    check(not any(counts["launches"].values()),
+          f"xlstm: no kernel of the port is on its path, yet {counts['launches']}")
+    done = sorted(eng.finished, key=lambda r: r.rid)
+    tokens = sum(len(r.generated) for r in done)
+    prefill_s = sum(r.prefill_ms for r in done) / 1e3
+    emit({"phase": "zoo_rest", "arch": cfg.name, "dtype": cfg.compute_dtype,
+          "layers": cfg.num_layers, "plan": [(seg.kind, seg.count) for seg in cfg.decoder_plan()],
+          "setup_s": setup_s, "prompt_tokens": [len(r.prompt) for r in reqs],
+          "requests_served": len(done), "tokens": tokens, "seconds": seconds,
+          "prefill_ms": [[len(r.prompt) - 1, r.prefill_ms] for r in done],
+          "prefill_share": prefill_s / seconds,
+          "decode_tok_per_s": tokens / (seconds - prefill_s), "steps": eng.stats["steps"],
+          **counts, "fp32_check": fp32,
+          "bf16_check": zoo_bf16_check(torch, M, cfg, params, eng)})
+
+    prof_eng = ServeEngine(cfg, params, ecfg, device="cuda")
+    for r in reqs:
+        prof_eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=16,
+                                deadline_s=900.0))
+    for _ in range(2):
+        prof_eng.step()
+    check(len(prof_eng.active) == 4, "xlstm decode profile: expected 4 live lanes")
+    contexts = [prof_eng.seq_len[r.rid] for r in reqs]
+    emit({"phase": "zoo_rest_decode_profile", "arch": cfg.name, "lanes": 4,
+          "contexts_at_start": contexts, **step_profile(torch, prof_eng, 6)})
+    # the prefill's shares on the model's repeating unit, its first 8
+    # blocks (7 mLSTM, 1 sLSTM: the 48 blocks are 6 of them, so the shares
+    # are the whole model's), a sixth of the profiler's events
+    unit = cfg.replace(num_layers=cfg.slstm_every)
+    unit_eng = ServeEngine(unit, dict(params, segments=params["segments"][:2]), ecfg,
+                           device="cuda")
+    ranges = ("xlstm.slstm_scan", "xlstm.mlstm_chunked")
+    t1 = time.perf_counter()
+    with annotated(torch, xlstm_module, "slstm_scan", ranges[0]), \
+            annotated(torch, xlstm_module, "mlstm_chunked", ranges[1]):
+        profile_prefill(torch, unit_eng, reqs[-1].prompt[:-1],
+                        phase="zoo_rest_prefill_profile", ranges=ranges)
+    emit({"phase": "zoo_rest_prefill_profile_seconds", "arch": cfg.name,
+          "blocks": unit.num_layers, "seconds": time.perf_counter() - t1})
+    del eng, prof_eng, unit_eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def vlm_positions(kind):
+    """[1, 3, VLM_PROMPT] int32 positions: ``index`` — all three rows
+    0..S-1; ``image`` — VLM_TEXT text tokens, a VLM_GRID x VLM_GRID image
+    block (temporal position constant, height and width the grid), and
+    VLM_TEXT text tokens continuing past the block's largest position
+    (Qwen2-VL's position rule)."""
+    import numpy as np
+
+    if kind == "index":
+        return np.broadcast_to(np.arange(VLM_PROMPT, dtype=np.int32), (1, 3, VLM_PROMPT)).copy()
+    t0 = VLM_TEXT
+    hh, ww = np.meshgrid(np.arange(VLM_GRID), np.arange(VLM_GRID), indexing="ij")
+    block = np.stack([np.full(VLM_GRID * VLM_GRID, t0), t0 + hh.ravel(), t0 + ww.ravel()])
+    start = t0 + VLM_GRID
+    pos = np.concatenate([np.tile(np.arange(VLM_TEXT), (3, 1)), block,
+                          np.tile(np.arange(start, start + VLM_TEXT), (3, 1))], axis=1)
+    check(pos.shape[1] == VLM_PROMPT, f"image prompt of {pos.shape[1]} positions")
+    return pos[None].astype(np.int32)
+
+
+def vlm_generate(torch, M, T, cfg, params, embeds, pos, n_new):
+    """``prefill`` on patch embeddings (host-built positions), then greedy
+    text ``decode_step``s through the contiguous cache: the first token
+    from the prefill's last hidden, the rest from decode.  Returns (tokens,
+    the first decode step's logits, prefill ms, decode s, route)."""
+    T.reset_prefill_routes()
+    cache = M.init_cache(cfg, 1, VLM_PROMPT + n_new + 8, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h, cache = M.prefill(cfg, params, {"embeds": embeds, "positions": torch.from_numpy(pos)},
+                         cache)
+    tok = T.lm_logits(cfg, params, h)[:, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    route = [k for k, v in T.prefill_routes.items() if v]
+    cur = torch.full((1,), int(pos.max()) + 1, dtype=torch.int32, device="cuda")
+    toks, first = [tok], None
+    t0 = time.perf_counter()
+    for _ in range(n_new - 1):
+        logits, cache = M.decode_step(cfg, params, cache, tok, cur)
+        if first is None:
+            first = logits[0, :cfg.vocab_size]
+        tok = logits[:, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+        toks.append(tok)
+        cur = cur + 1
+    torch.cuda.synchronize()
+    return (torch.cat(toks).tolist(), first, prefill_ms, time.perf_counter() - t0,
+            route[0] if len(route) == 1 else route)
+
+
+def vlm_full_logits(torch, M, T, cfg, params, embeds, pos, tok):
+    """``forward_train`` over the prompt and the first text token: the
+    logits of its last position (what the first decode step predicts)."""
+    import numpy as np
+
+    e = T.embed_tokens(cfg, T.cast_params(cfg, params),
+                       torch.tensor([[tok]], dtype=torch.int32, device="cuda"))
+    full = torch.cat([embeds.to(e.dtype), e], dim=1)
+    fpos = np.concatenate([pos, np.full((1, 3, 1), pos.max() + 1, np.int32)], axis=2)
+    hid, _ = M.forward_train(cfg, params, {"embeds": full, "positions": torch.from_numpy(fpos)})
+    return T.lm_logits(cfg, params, hid[:, -1])[0, :cfg.vocab_size]
+
+
+def vlm_rest(torch, M, K, FK, T, blocks_module):
+    """qwen2-vl-7b through prefill / decode_step: the fp32 check at 2 of 28
+    layers for both prompts (the first decode step's logits against
+    forward_train over prompt + token, rtol 2e-3 / atol 2e-4), then at full
+    width in bf16 the kernel-route prompt and the image-block prompt, each
+    x VLM_NEW text tokens, counts zeroed just before and read just after;
+    in bf16 the decode step's argmax within 3e-2 of the full forward's top
+    logit, the row's errors reported."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("qwen2-vl-7b")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    embeds = torch.randn((1, VLM_PROMPT, cfg.d_model), generator=gen, device="cuda")
+    prompts = {"index": vlm_positions("index"), "image": vlm_positions("image")}
+    t0 = time.perf_counter()
+    cfg32 = cfg.replace(num_layers=VLM_FP32_LAYERS, compute_dtype="float32")
+    p32 = device_params(torch, cfg32, torch.float32)
+    fp32 = {"layers": VLM_FP32_LAYERS}
+    for kind, pos in prompts.items():
+        toks, first, _, _, route = vlm_generate(torch, M, T, cfg32, p32, embeds, pos, 2)
+        want = vlm_full_logits(torch, M, T, cfg32, p32, embeds, pos, toks[0])
+        ok, err, rel = logits_close(first, want, EXTRAS_TOL)
+        check(ok, f"qwen2-vl fp32 {kind}: decode logits vs forward_train max |err| {err}")
+        fp32[kind] = {"route": route, "max_abs_err": err, "rel_err": rel}
+    check(fp32["index"]["route"] == "kernel" and fp32["image"]["route"] == "plain",
+          f"qwen2-vl routes {fp32}")
+    del p32
+    torch.cuda.empty_cache()
+
+    params = device_params(torch, cfg, torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+    embeds = embeds.to(torch.bfloat16)
+    vlm_generate(torch, M, T, cfg, params, embeds[:, :128], prompts["index"][..., :128], 2)
+    calls = {"causal": 0, "non_causal": 0}
+    out = {}
+    reset_counts(torch, K, FK, T)
+    routes = {"kernel": 0, "plain": 0}
+    with count_flash_calls(blocks_module, calls):
+        for kind, pos in prompts.items():
+            out[kind] = vlm_generate(torch, M, T, cfg, params, embeds, pos, VLM_NEW)
+            for k, v in T.prefill_routes.items():
+                routes[k] += v
+    counts = read_counts(torch, K, FK, T, calls)
+    counts["prefill_routes"] = routes
+    fl = counts["launches"]["flash_attention"]
+    check(fl == cfg.num_layers, f"qwen2-vl: flash_attention launches {fl} != {cfg.num_layers}")
+    check(counts["flash_attention_variants"] == {"hopper": fl, "generic": 0},
+          f"qwen2-vl: flash_attention variants {counts['flash_attention_variants']}")
+    check(routes == {"kernel": 1, "plain": 1}, f"qwen2-vl prefill routes {routes}")
+    rows = {}
+    for kind, pos in prompts.items():
+        toks, first, prefill_ms, decode_s, route = out[kind]
+        want = vlm_full_logits(torch, M, T, cfg, params, embeds, pos, toks[0])
+        ok, err, rel = logits_close(first, want, TOL["bfloat16"], top_only=True)
+        check(ok, f"qwen2-vl bf16 {kind}: decode logits vs forward_train: max |err| {err}, "
+                  f"row relative error {rel}")
+        check(all(0 <= t < cfg.vocab_size for t in toks), "qwen2-vl: token outside the vocabulary")
+        rows[kind] = {"route": route, "prompt_positions": [int(pos.min()), int(pos.max())],
+                      "prefill_ms": prefill_ms, "decode_tok_per_s": (len(toks) - 1) / decode_s,
+                      "tokens": len(toks), "check_max_abs_err": err, "check_rel_err": rel,
+                      "check_argmax_equal": int(first.argmax()) == int(want.argmax())}
+    emit({"phase": "zoo_rest", "arch": cfg.name, "dtype": cfg.compute_dtype,
+          "layers": cfg.num_layers, "heads": [cfg.num_heads, cfg.padded_heads, cfg.num_kv_heads],
+          "mrope_sections": list(cfg.mrope_sections), "setup_s": setup_s,
+          "prompts": rows, **counts, "fp32_check": fp32})
+    del params, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def encdec_generate(torch, M, T, cfg, params, src, prompt, n_new):
+    """``prefill`` (encoder over the frames, the memory KV into the cache,
+    the decoder prompt), then greedy ``decode_step``s: the first token from
+    the prefill's last hidden.  Returns (tokens [B, n_new], the first
+    decode step's logits, prefill ms, decode s)."""
+    b, p = prompt.shape
+    cache = M.init_cache(cfg, b, p + n_new + 8, device="cuda", memory_len=src.shape[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h, cache = M.prefill(cfg, params, {"tokens": prompt, "src_embeds": src}, cache)
+    tok = T.lm_logits(cfg, params, h)[:, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cur = torch.full((b,), p, dtype=torch.int32, device="cuda")
+    toks, first = [tok], None
+    t0 = time.perf_counter()
+    for _ in range(n_new - 1):
+        logits, cache = M.decode_step(cfg, params, cache, tok, cur)
+        if first is None:
+            first = logits[:, :cfg.vocab_size]
+        tok = logits[:, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+        toks.append(tok)
+        cur = cur + 1
+    torch.cuda.synchronize()
+    return torch.stack(toks, dim=1), first, prefill_ms, time.perf_counter() - t0
+
+
+def encdec_rest(torch, M, K, FK, T, blocks_module):
+    """seamless-m4t-medium, nothing cut: the fp32 check at full width (the
+    400-frame request: the first decode step's logits against forward_train
+    over prompt + token, rtol 2e-3 / atol 2e-4), then in bf16 batch 4 of
+    1200 frames and the 400-frame request alone, counts zeroed just before
+    and read just after; each bf16 token within tolerance of the top logit
+    of a teacher-forced forward_train."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("seamless-m4t-medium")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    src = torch.randn((ENCDEC_BATCH, ENCDEC_FRAMES, cfg.d_model), generator=gen, device="cuda")
+    alone = torch.randn((1, ENCDEC_ALONE, cfg.d_model), generator=gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (ENCDEC_BATCH, ENCDEC_PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    t0 = time.perf_counter()
+    cfg32 = cfg.replace(compute_dtype="float32")
+    p32 = device_params(torch, cfg32, torch.float32)
+    toks, first, _, _ = encdec_generate(torch, M, T, cfg32, p32, alone, prompt[:1], 2)
+    full = torch.cat([prompt[:1], toks[:, :1]], dim=1)
+    hid, _ = M.forward_train(cfg32, p32, {"tokens": full, "src_embeds": alone})
+    ok, err, rel = logits_close(first[0], T.lm_logits(cfg32, p32, hid[:, -1])[0, :cfg.vocab_size],
+                                EXTRAS_TOL)
+    check(ok, f"seamless fp32: decode logits vs forward_train max |err| {err}")
+    fp32 = {"frames": ENCDEC_ALONE, "max_abs_err": err, "rel_err": rel}
+    del p32, hid
+    torch.cuda.empty_cache()
+
+    params = device_params(torch, cfg, torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+    src, alone = src.to(torch.bfloat16), alone.to(torch.bfloat16)
+    encdec_generate(torch, M, T, cfg, params, src[:, :128], prompt, 2)     # warm-up
+    calls = {"causal": 0, "non_causal": 0}
+    reset_counts(torch, K, FK, T)
+    with count_flash_calls(blocks_module, calls):
+        batch = encdec_generate(torch, M, T, cfg, params, src, prompt, ENCDEC_NEW)
+        single = encdec_generate(torch, M, T, cfg, params, alone, prompt[:1], ENCDEC_NEW)
+    counts = read_counts(torch, K, FK, T, calls)
+    fl = counts["launches"]["flash_attention"]
+    check(fl == 2 * 3 * cfg.num_layers,
+          f"seamless: flash_attention launches {fl} != 2 prefills x 3 x {cfg.num_layers}")
+    check(calls == {"causal": 2 * cfg.num_layers, "non_causal": 4 * cfg.num_layers},
+          f"seamless: flash_attention calls by mask {calls}")
+    check(counts["flash_attention_variants"] == {"hopper": fl, "generic": 0},
+          f"seamless: flash_attention variants {counts['flash_attention_variants']}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    T._encode(cfg, T.cast_params(cfg, params), {"src_embeds": src}, "prefill")
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t1) * 1e3
+    rows = {}
+    for name, (toks, _, prefill_ms, decode_s), mem in (("batch", batch, src),
+                                                        ("alone", single, alone)):
+        b = toks.shape[0]
+        full = torch.cat([prompt[:b], toks[:, :-1]], dim=1)
+        hid, _ = M.forward_train(cfg, params, {"tokens": full, "src_embeds": mem})
+        logits = T.lm_logits(cfg, params, hid[:, ENCDEC_PROMPT - 1:])[..., :cfg.vocab_size]
+        ok, gap, equal = top_gaps(torch, logits, toks)
+        check(ok, f"seamless bf16 {name}: a token {gap} below the teacher-forced top logit")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              "seamless: token outside the vocabulary")
+        rows[name] = {"batch": b, "frames": mem.shape[1], "prompt_tokens": ENCDEC_PROMPT,
+                      "prefill_ms": prefill_ms, "tokens": int(toks.numel()),
+                      "decode_tok_per_s": b * (toks.shape[1] - 1) / decode_s,
+                      "bf16_max_gap_to_top_logit": gap,
+                      "bf16_tokens_equal_to_argmax": equal}
+        del hid, logits
+    emit({"phase": "zoo_rest", "arch": cfg.name, "dtype": cfg.compute_dtype,
+          "layers": [cfg.enc_layers, cfg.num_layers], "setup_s": setup_s,
+          "encode_ms_batch": encode_ms, "runs": rows, **counts, "fp32_check": fp32})
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_zoo_rest(torch, M, K):
+    """Phase 10: xlstm-1.3b, qwen2-vl-7b and seamless-m4t-medium in turn,
+    each freed before the next.  Returns each model's counts."""
+    import repro_torch.models.blocks as blocks_module
+    import repro_torch.models.transformer as T
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    out, seconds = {}, {}
+    for arch, run in (("xlstm-1.3b", xlstm_rest), ("qwen2-vl-7b", vlm_rest),
+                      ("seamless-m4t-medium", encdec_rest)):
+        t0 = time.perf_counter()
+        out[arch] = run(torch, M, K, FK, T, blocks_module)
+        seconds[arch] = time.perf_counter() - t0
+    emit({"phase": "zoo_rest_seconds", **seconds})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2175,6 +2641,11 @@ def main() -> int:
     # full width (the MoE models' depth cut)
     zoo_launches = phase_zoo(torch, M, K)
 
+    # 10. the rest of the zoo: xlstm-1.3b served, qwen2-vl-7b's embeddings
+    # path and seamless-m4t-medium's encoder-decoder, at full width
+    rest = phase_zoo_rest(torch, M, K)
+    rest_launches = {a: c["launches"] for a, c in rest.items()}
+
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
     rows = []
@@ -2187,7 +2658,8 @@ def main() -> int:
                                     "long_prompt": long_launches[name],
                                     "weight_pager": weight_launches[name],
                                     "train": train_launches[name],
-                                    "zoo": {a: n[name] for a, n in zoo_launches.items()}},
+                                    "zoo": {a: n[name] for a, n in zoo_launches.items()},
+                                    "zoo_rest": {a: n[name] for a, n in rest_launches.items()}},
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
@@ -2196,9 +2668,11 @@ def main() -> int:
             model_of = ZOO_PAGED_CASES if name == "paged_attention" else ZOO_FLASH_CASES
             # (paged_attention: its windowed launches in that model's run)
             counted = "paged_attention_windowed" if name == "paged_attention" else name
+            by_model = {**zoo_launches, **rest_launches}
             row["zoo_cases"] = [
                 {"case": c["case"], "dtype": c["dtype"], "window": c["window"],
-                 "launches": zoo_launches[model_of[c["case"]]][counted],
+                 "model": model_of[c["case"]],
+                 "launches": by_model[model_of[c["case"]]][counted],
                  **{k: c[k] for k in ("max_abs_err", "max_row_rel_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")}}
                 for c in kstats["zoo_cases"][name]]
@@ -2208,6 +2682,13 @@ def main() -> int:
             row["variant"] = s["variant"]
             row["variants"] = {v: {"ms": ms, "long_prompt_launches": flash_variants[v]}
                                for v, ms in s["variant_ms"].items()}
+            # phase 10: launches by model, by variant and by mask, and the
+            # prefills that took the plain route
+            row["zoo_rest"] = {a: {k: c[k] for k in ("flash_attention_variants",
+                                                     "flash_attention_calls", "prefill_routes")}
+                               for a, c in rest.items()}
+            row["plain_route_prefills"] = sum(c["prefill_routes"]["plain"]
+                                              for c in rest.values())
         if name in COPY_MAIN_CASE:
             # the serve path's call (both pools, every layer: two launches),
             # the parent's call pattern for it, and the launches by variant

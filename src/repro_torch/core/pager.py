@@ -1938,7 +1938,22 @@ class PagingService:
                 else:
                     # Only dirty/pinned/in-flight pages left: hand dirty ones
                     # to the cleaners and wait — the read path does not write.
-                    self._post_shard_clean_locked(shard, max_pages=4)
+                    posted = self._post_shard_clean_locked(shard, max_pages=4)
+                    # Every slot of the stripe held by a quarantined page
+                    # (a write-back that failed after the last
+                    # retry_quarantined) is a wait nothing serves: no
+                    # cleaner or eviction touches them.  Fail the fill
+                    # instead; its faulting thread raises IOError and can
+                    # re-post the quarantine and retry.
+                    owned = len(range(shard.index, self.buffer.num_slots,
+                                      len(self.shards)))
+                    if not posted and sum(
+                            1 for k in shard.table.resident_keys()
+                            if shard.table.get(k).quarantined) >= owned:
+                        raise IOError(
+                            f"every slot of stripe {shard.index} holds a "
+                            f"quarantined dirty page; retry_quarantined() "
+                            f"once the store is back")
                     shard.counters["fill_stalls"] += 1
                     shard.cond.wait(timeout=0.05)
                     continue

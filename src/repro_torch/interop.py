@@ -106,8 +106,9 @@ def params_from_numpy(tree: Any, device="cuda", cfg=None) -> Any:
     port's parameter tree: identical keys, shapes and dtypes.
 
     With ``cfg``, checks the invariant the port's decode relies on: the
-    ``wo`` rows of padded query heads are zero (the paged-attention kernel
-    writes zeros for those heads instead of computing them).
+    ``wo`` rows of padded query heads are zero, in every attention and
+    cross-attention of the encoder and the decoder (the attention kernels
+    write zeros for those heads instead of computing them).
     """
     from . import resolve_device
 
@@ -115,8 +116,9 @@ def params_from_numpy(tree: Any, device="cuda", cfg=None) -> Any:
     params = tree_map(lambda a: from_numpy(np.asarray(a), dev), tree)
     if cfg is not None and cfg.padded_heads != cfg.num_heads:
         rows = cfg.num_heads * cfg.head_dim
-        for seg in params["segments"]:
-            wo = seg["attn"]["wo"]                    # [L, Hp*D, E]
+        wos = [seg[a]["wo"] for seg in params["segments"] + params.get("encoder", [])
+               for a in ("attn", "xattn") if a in seg]   # [L, Hp*D, E] each
+        for wo in wos:
             if torch.count_nonzero(wo[:, rows:]).item():
                 raise ValueError(
                     "padded-head rows of wo are not zero; the port's decode "

@@ -7,7 +7,10 @@ async checkpointing and restart.  Runs on the card by default; ``--device
 cpu`` runs the plain PyTorch path (``--smoke`` picks the reduced config).
 Weights are random, from ``--seed``.  Without ``--data`` a synthetic Zipf
 shard is written to a temporary directory (removed at exit), as the JAX
-package's launcher writes it.  ``--mesh`` and ``--dry`` (the production
+package's launcher writes it.  Every architecture of the registry trains:
+a stub-frontend one (qwen2-vl, seamless) takes random embeddings in place
+of its frontend's output (:func:`stub_frontend`), where the JAX package's
+launcher refuses it.  ``--mesh`` and ``--dry`` (the production
 mesh and the compile-only dry run) belong to the distribution slice, which
 is not ported yet.
 
@@ -60,6 +63,32 @@ def write_synthetic_shard(path: Path, tokens: int, vocab_size: int) -> None:
     rng.choice(v_eff, size=tokens, p=probs).astype(np.int32).tofile(path)
 
 
+def stub_frontend(cfg, batches, seed: int = 0):
+    """Batches as a stub-frontend architecture takes them: qwen2-vl's patch
+    embeddings and [B, 3, S] positions (all three rows the index) in place
+    of the tokens; seamless's frame embeddings, as many frames as tokens,
+    beside the decoder's tokens.  Embeddings are drawn from a numpy normal
+    of ``seed`` (the JAX package stubs both frontends too); labels stay the
+    shard's.  A token architecture's batches pass through."""
+    if cfg.input_mode == "tokens" and not cfg.is_encdec:
+        yield from batches
+        return
+    rng = np.random.default_rng(seed)
+    for batch in batches:
+        b, s = batch["labels"].shape
+        out = dict(batch)
+        emb = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        if cfg.is_encdec:
+            out["src_embeds"] = emb
+        else:
+            del out["tokens"]
+            out["embeds"] = emb
+            if cfg.mrope_sections is not None:
+                out["positions"] = np.broadcast_to(
+                    np.arange(s, dtype=np.int32), (b, 3, s)).copy()
+        yield out
+
+
 def make_trainer(args: argparse.Namespace, shard: Path):
     """(trainer, loader, reader) as the launcher runs them: the Trainer for
     ``args`` and the pipeline's batches of ``args.batch`` x ``args.seq``
@@ -86,7 +115,7 @@ def make_trainer(args: argparse.Namespace, shard: Path):
         config=UMapConfig(page_size=1 << 20, buffer_size=32 << 20,
                           num_fillers=4, num_evictors=2, read_ahead=4,
                           eviction_policy="swa"))
-    return trainer, loader, reader
+    return trainer, stub_frontend(cfg, loader, args.seed), reader
 
 
 def main(argv=None) -> int:
@@ -99,10 +128,6 @@ def main(argv=None) -> int:
     from ..configs.registry import get_config, get_smoke_config
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.input_mode != "tokens" or cfg.is_encdec:
-        print(f"{args.arch}: stub-frontend arch; token training unsupported here",
-              file=sys.stderr)
-        return 2
     tmp = None
     try:
         if args.data:

@@ -1,25 +1,39 @@
-"""Decoder blocks, cache-aware (port of ``repro/models/blocks.py``): the
-dense, MoE and hymba kinds.
+"""Decoder and encoder blocks, cache-aware (port of ``repro/models/blocks.py``):
+every kind of the JAX package — dense, encoder, xdecoder (self- plus
+cross-attention), MoE, hymba, mLSTM and sLSTM.
 
 A block provides ``block_param_specs(cfg, seg)`` (one layer's ParamSpec
 tree) and ``block_apply(cfg, seg, p, x, ctx) -> (x, new_cache_layer, aux)``.
-``ctx`` carries the mode ("train" | "prefill" | "decode"), positions and
-the per-layer cache slice.  A prefill whose positions are the default
-``0..S-1`` runs its self-attention in the ``flash_attention`` kernel; a
-prefill with explicit positions keeps the plain ``attention``.  A hymba
+``ctx`` carries the mode ("train" | "prefill" | "decode"), positions
+([B, S], or [B, 3, S] under M-RoPE), the per-layer cache slice and, for
+cross-attention, the encoder memory.  A prefill whose mask positions (the
+temporal row under M-RoPE) are ``0..S-1`` in every row runs its
+self-attention in the ``flash_attention`` kernel, an encoder's without the
+causal mask; a prefill's cross-attention always runs there (no mask, the
+memory as keys); other prefills keep the plain ``attention``.  A hymba
 block runs attention and a Mamba mixer side by side on the same input
-(``models/ssm.py``); an MoE block's FFN is ``models/moe.py``.  The xLSTM
-kinds and cross-attention are not ported yet.
+(``models/ssm.py``); an MoE block's FFN is ``models/moe.py``; the xLSTM
+kinds are ``models/xlstm.py``.
 
 Cache writes are **in-place** (JAX rebuilt the cache with ``.at[].set``):
 a writer returns the very tensors it was given, updated, so the caller can
-tell what was written in place from what is new.  On the paged decode path
+tell what was written in place from what is new.  An xLSTM layer's state
+tuple is kept under one name per tensor (mLSTM ``C``, ``n``, ``m``; sLSTM
+``c``, ``n``, ``m``, ``h``; both ``conv``), so every cache is a flat dict
+of tensors.  On the paged decode path
 the new token goes into the pool with one index write and attention reads
 the pool through the page table with the ``paged_attention`` kernel
 (with the segment's sliding window, if any: the pool holds every position
 and the kernel reads only the last ``window``);
 :func:`_gather_paged` (gather pages, then plain ``decode_attention``) stays
 as the oracle the tests hold that path to.
+
+Under M-RoPE the contiguous cache is filled by sequence index, and the
+``pos`` row holds each entry's temporal position, which the decode mask
+reads; a decode step appends at the first free slot.  (The JAX package
+indexes the cache by the temporal position, so the tokens of an image block,
+which share one, overwrite each other; ROADMAP.md, divergences of the
+reference.)
 """
 
 from __future__ import annotations
@@ -41,21 +55,33 @@ from .layers import (
     attention,
     decode_attention,
     expand_kv,
+    gelu_mlp,
     make_qh_to_kv_map,
     rms_norm,
     swiglu,
 )
+from .xlstm import (
+    mlstm_block_forward,
+    mlstm_block_specs,
+    slstm_block_forward,
+    slstm_block_specs,
+)
+
+# names under which an xLSTM layer's cache keeps its state tuple
+STATE_NAMES = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "m", "h")}
 
 
 @dataclasses.dataclass
 class BlockCtx:
     mode: str                                   # train | prefill | decode
-    positions: torch.Tensor                     # [B, S]
+    positions: torch.Tensor                     # [B, S] or [B, 3, S] (M-RoPE)
     cache: Optional[Dict[str, torch.Tensor]] = None   # this layer's cache slice
     cur_pos: Optional[torch.Tensor] = None      # [B] decode position
-    # positions are 0..S-1 in every row (the caller passed none): prefill
-    # self-attention then takes the flash_attention kernel
+    # the mask positions (the temporal row under M-RoPE) are 0..S-1 in
+    # every row: prefill self-attention then takes the flash_attention kernel
     default_positions: bool = False
+    memory: Optional[torch.Tensor] = None       # encoder output [B, Sm, d]
+    memory_positions: Optional[torch.Tensor] = None   # [B, Sm]
 
 
 # ----------------------------------------------------------------- attention
@@ -99,40 +125,67 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     return q, k, v
 
 
+def _rope_q_positions(positions: torch.Tensor) -> torch.Tensor:
+    """[B,S] mask positions from possibly-M-RoPE positions (the temporal row)."""
+    return positions[:, 0] if positions.dim() == 3 else positions
+
+
 def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
-               ctx: BlockCtx):
-    """Self-attention sublayer -> (out [B,S,d], new_cache)."""
+               ctx: BlockCtx, cross: bool = False):
+    """Self- or cross-attention sublayer -> (out [B,S,d], new_cache)."""
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, p, x)
-    q_pos = ctx.positions
-    q = apply_rope(q, ctx.positions, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, ctx.positions, cfg.rope_theta, cfg.mrope_sections)
-    window = seg.window
-    new_cache = None
+    q_pos = _rope_q_positions(ctx.positions)
 
     def kv_map():
         return make_qh_to_kv_map(cfg.num_heads, cfg.num_kv_heads,
                                  cfg.padded_heads, x.device)
+
+    if cross:
+        # keys and values from the encoder memory: no RoPE, no mask, no
+        # cache write (the decode reads the ones _fill_cross_kv stored)
+        q = x @ p["wq"]
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        q = q.reshape(b, s, cfg.padded_heads, cfg.head_dim)
+        km = (ctx.memory @ p["wk"]).reshape(b, -1, cfg.num_kv_heads, cfg.head_dim)
+        vm = (ctx.memory @ p["wv"]).reshape(b, -1, cfg.num_kv_heads, cfg.head_dim)
+        if ctx.mode == "prefill":
+            o = flash_attention(q.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2),
+                                causal=False, num_heads=cfg.num_heads).transpose(1, 2)
+        else:
+            spec = AttnSpec(causal=False, impl="auto", chunk_size=cfg.attn_chunk)
+            qh_map = kv_map()
+            o = attention(q, expand_kv(km, qh_map), expand_kv(vm, qh_map), spec,
+                          q_pos, ctx.memory_positions)
+        return o.reshape(b, s, -1) @ p["wo"], None
+
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q, ctx.positions, cfg.rope_theta, cfg.mrope_sections)
+    k = apply_rope(k, ctx.positions, cfg.rope_theta, cfg.mrope_sections)
+    window = seg.window
+    causal = seg.kind != "encoder"
+    by_index = cfg.mrope_sections is not None
+    new_cache = None
 
     if ctx.mode == "prefill" and ctx.default_positions:
         # the kernel reads the [B,S,*,D] tensors as [B,*,S,D] views in place,
         # attends the real heads over un-expanded KV and zeros the padded
         # ones (their wo rows are zero); its output is [B,S,H,D] in memory
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                            causal=True, window=window,
+                            causal=causal, window=window,
                             num_heads=cfg.num_heads).transpose(1, 2)
         if ctx.cache is not None:
-            new_cache = _write_prefill_cache(ctx.cache, k, v, q_pos, window)
+            new_cache = _write_prefill_cache(ctx.cache, k, v, q_pos, window, by_index)
     elif ctx.mode in ("train", "prefill"):
         # explicit positions (or training, which has no backward kernel):
         # plain dense/chunked attention over expanded KV
-        spec = AttnSpec(causal=True, window=window, impl="auto",
+        spec = AttnSpec(causal=causal, window=window, impl="auto",
                         chunk_size=cfg.attn_chunk, causal_skip=cfg.causal_skip)
         qh_map = kv_map()
         o = attention(q, expand_kv(k, qh_map), expand_kv(v, qh_map), spec,
                       q_pos, q_pos)
         if ctx.mode == "prefill" and ctx.cache is not None:
-            new_cache = _write_prefill_cache(ctx.cache, k, v, q_pos, window)
+            new_cache = _write_prefill_cache(ctx.cache, k, v, q_pos, window, by_index)
     elif ctx.cache is not None and "k_pool" in ctx.cache:
         # paged decode: write the token through the page table, then read the
         # pool through the table in-kernel, the last `window` positions of
@@ -146,7 +199,7 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
                             window=window)
     else:  # decode: one token against a contiguous cache
         assert s == 1
-        new_cache = _write_decode_cache(ctx.cache, k, v, ctx.cur_pos, window)
+        new_cache = _write_decode_cache(ctx.cache, k, v, ctx.cur_pos, window, by_index)
         kc, vc = new_cache["k"], new_cache["v"]
         if cfg.decode_kv_expand or cfg.padded_heads != cfg.num_heads:
             qh_map = kv_map()
@@ -155,15 +208,36 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
     return o.reshape(b, s, -1) @ p["wo"], new_cache
 
 
-def _write_prefill_cache(cache, k, v, positions, window):
-    """Install prefilled KV into a (possibly ring) cache, in place."""
+def cross_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    """Cross-attention of one decode token over the memory KV that
+    ``_fill_cross_kv`` cached (``xk`` / ``xv`` [B, Sm, KVH, D]), every
+    entry valid (the reference's ``_xdecoder_decode``) -> [B, 1, d]."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.padded_heads, cfg.head_dim)
+    qh_map = make_qh_to_kv_map(cfg.num_heads, cfg.num_kv_heads, cfg.padded_heads,
+                               x.device)
+    xk, xv = expand_kv(cache["xk"], qh_map), expand_kv(cache["xv"], qh_map)
+    sm = xk.shape[1]
+    mem_pos = torch.arange(sm, dtype=torch.int32, device=x.device).expand(b, sm)
+    big = torch.full((b,), 2**30, dtype=torch.int32, device=x.device)
+    o = decode_attention(q, xk, xv, mem_pos, big, None)
+    return o.reshape(b, s, -1) @ p["wo"]
+
+
+def _write_prefill_cache(cache, k, v, positions, window, by_index=False):
+    """Install prefilled KV into a (possibly ring) cache, in place.  With
+    ``by_index`` (M-RoPE) token ``i`` goes to slot ``i`` and ``pos`` holds
+    its temporal position."""
     S_cache = cache["k"].shape[1]
     b, s = positions.shape
     if window is not None and S_cache < s:
         # ring cache: keep the last S_cache tokens at slot = pos % S_cache
         k, v, positions = k[:, -S_cache:], v[:, -S_cache:], positions[:, -S_cache:]
     bi = torch.arange(b, device=k.device)[:, None]
-    slots = positions % S_cache if window is not None else positions
+    if by_index:
+        slots = torch.arange(positions.shape[1], device=k.device)[None, :]
+    else:
+        slots = positions % S_cache if window is not None else positions
     cache["k"][bi, slots] = k.to(cache["k"].dtype)
     cache["v"][bi, slots] = v.to(cache["v"].dtype)
     cache["pos"][bi, slots] = positions.to(cache["pos"].dtype)
@@ -208,11 +282,15 @@ def _gather_paged(cache):
     return kc, vc, kpos, lens - 1                          # cur_pos = len-1
 
 
-def _write_decode_cache(cache, k, v, cur_pos, window):
-    """Write one token into a contiguous (possibly ring) cache, in place."""
+def _write_decode_cache(cache, k, v, cur_pos, window, by_index=False):
+    """Write one token into a contiguous (possibly ring) cache, in place.
+    With ``by_index`` (M-RoPE) it goes to the first free slot."""
     S_cache = cache["k"].shape[1]
     b = k.shape[0]
-    slots = (cur_pos % S_cache) if window is not None else cur_pos
+    if by_index:
+        slots = (cache["pos"] >= 0).sum(dim=1)
+    else:
+        slots = (cur_pos % S_cache) if window is not None else cur_pos
     slots = slots.long()
     bi = torch.arange(b, device=k.device)
     cache["k"][bi, slots] = k[:, 0].to(cache["k"].dtype)
@@ -237,9 +315,14 @@ def attn_cache_init(cfg: ModelConfig, seg: Segment, batch: int, seq_len: int,
 
 
 def mlp_param_specs(cfg: ModelConfig) -> dict:
-    if cfg.act != "silu":
-        raise NotImplementedError(f"act {cfg.act!r} is not ported yet")
     E, F = cfg.d_model, cfg.d_ff
+    if cfg.act == "gelu":
+        return {
+            "w_in": ParamSpec((E, F), ("embed", "ffn"), fan_in_init),
+            "b_in": ParamSpec((F,), ("ffn",), zeros_init),
+            "w_out": ParamSpec((F, E), ("ffn", "embed"), fan_in_init),
+            "b_out": ParamSpec((E,), ("embed",), zeros_init),
+        }
     return {
         "w_gate": ParamSpec((E, F), ("embed", "ffn"), fan_in_init),
         "w_up": ParamSpec((E, F), ("embed", "ffn"), fan_in_init),
@@ -248,49 +331,66 @@ def mlp_param_specs(cfg: ModelConfig) -> dict:
 
 
 def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "gelu":
+        return gelu_mlp(x, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
 # --------------------------------------------------------------- block kinds
 
 
-def _check_kind(seg: Segment) -> None:
-    if seg.kind not in ("dense", "moe", "hymba"):
-        raise NotImplementedError(
-            f"block kind {seg.kind!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md, Queue 1 item 7)")
-
-
 def block_param_specs(cfg: ModelConfig, seg: Segment) -> dict:
-    _check_kind(seg)
     norm = lambda: ParamSpec((cfg.d_model,), ("embed",), ones_init)  # noqa: E731
-    if seg.kind == "dense":
+    if seg.kind in ("dense", "encoder"):
         return {"ln1": norm(), "attn": attn_param_specs(cfg),
+                "ln2": norm(), "mlp": mlp_param_specs(cfg)}
+    if seg.kind == "xdecoder":
+        return {"ln1": norm(), "attn": attn_param_specs(cfg),
+                "lnx": norm(), "xattn": attn_param_specs(cfg),
                 "ln2": norm(), "mlp": mlp_param_specs(cfg)}
     if seg.kind == "moe":
         return {"ln1": norm(), "attn": attn_param_specs(cfg),
                 "ln2": norm(),
                 "moe": moe_param_specs(cfg.d_model, cfg.d_ff, cfg.num_experts,
                                        cfg.moe_sharding)}
-    return {                                    # hymba
-        "ln1": norm(), "attn": attn_param_specs(cfg),
-        "mamba": mamba_param_specs(cfg.d_model, cfg.d_inner, cfg.ssm_state,
-                                   cfg.d_conv, cfg.dt_rank_actual),
-        "beta_attn": ParamSpec((cfg.d_model,), ("embed",), ones_init),
-        "beta_mamba": ParamSpec((cfg.d_model,), ("embed",), ones_init),
-        "ln_attn_out": norm(), "ln_mamba_out": norm(),
-        "ln2": norm(), "mlp": mlp_param_specs(cfg),
-    }
+    if seg.kind == "hymba":
+        return {
+            "ln1": norm(), "attn": attn_param_specs(cfg),
+            "mamba": mamba_param_specs(cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                                       cfg.d_conv, cfg.dt_rank_actual),
+            "beta_attn": ParamSpec((cfg.d_model,), ("embed",), ones_init),
+            "beta_mamba": ParamSpec((cfg.d_model,), ("embed",), ones_init),
+            "ln_attn_out": norm(), "ln_mamba_out": norm(),
+            "ln2": norm(), "mlp": mlp_param_specs(cfg),
+        }
+    if seg.kind == "mlstm":
+        return mlstm_block_specs(cfg.d_model, cfg.num_heads, cfg.mlstm_proj_factor,
+                                 cfg.mlstm_qk_factor, cfg.d_conv)
+    if seg.kind == "slstm":
+        return slstm_block_specs(cfg.d_model, cfg.num_heads, d_conv=cfg.d_conv)
+    raise ValueError(seg.kind)
 
 
 def block_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
                 ctx: BlockCtx) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
     """Returns (x_out, new_cache_layer, aux_losses)."""
-    _check_kind(seg)
     aux: Dict[str, torch.Tensor] = {}
-    if seg.kind == "dense":
+    if seg.kind in ("dense", "encoder"):
         h, new_cache = attn_apply(cfg, seg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), ctx)
         x = x + h
+        x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+        return x, new_cache, aux
+
+    if seg.kind == "xdecoder":
+        # the self-attention cache also holds the memory KV (xk, xv): it is
+        # written in place and handed back whole
+        h, new_cache = attn_apply(cfg, seg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), ctx)
+        x = x + h
+        hq = rms_norm(x, p["lnx"], cfg.norm_eps)
+        if ctx.mode == "decode":
+            x = x + cross_decode(cfg, p["xattn"], hq, ctx.cache)
+        else:
+            x = x + attn_apply(cfg, seg, p["xattn"], hq, ctx, cross=True)[0]
         x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
         return x, new_cache, aux
 
@@ -303,34 +403,78 @@ def block_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
                              moe_sharding=cfg.moe_sharding)
         return x + y, new_cache, aux
 
-    # hymba: attention and a Mamba mixer on the same normed input
-    normed = rms_norm(x, p["ln1"], cfg.norm_eps)
-    h_attn, new_attn_cache = attn_apply(cfg, seg, p["attn"], normed, ctx)
-    mc = ctx.cache if ctx.cache is not None else {}
-    if ctx.mode == "decode":
-        h_mamba, (ssm_s, conv_s) = mamba_decode(
-            p["mamba"], normed, mc.get("ssm"), mc.get("conv"), cfg.dt_rank_actual)
-    else:
-        h_mamba, (ssm_s, conv_s) = mamba_forward(
-            p["mamba"], normed, mc.get("ssm"), mc.get("conv"),
-            cfg.dt_rank_actual, cfg.ssm_chunk)
-    fused = 0.5 * (rms_norm(h_attn, p["ln_attn_out"], cfg.norm_eps) * p["beta_attn"]
-                   + rms_norm(h_mamba, p["ln_mamba_out"], cfg.norm_eps) * p["beta_mamba"])
-    x = x + fused
-    x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
-    new_cache = dict(new_attn_cache or {})
-    if ctx.mode != "train":
-        new_cache["ssm"] = ssm_s
-        new_cache["conv"] = conv_s
-    return x, (new_cache or None), aux
+    if seg.kind == "hymba":
+        # attention and a Mamba mixer on the same normed input
+        normed = rms_norm(x, p["ln1"], cfg.norm_eps)
+        h_attn, new_attn_cache = attn_apply(cfg, seg, p["attn"], normed, ctx)
+        mc = ctx.cache if ctx.cache is not None else {}
+        if ctx.mode == "decode":
+            h_mamba, (ssm_s, conv_s) = mamba_decode(
+                p["mamba"], normed, mc.get("ssm"), mc.get("conv"), cfg.dt_rank_actual)
+        else:
+            h_mamba, (ssm_s, conv_s) = mamba_forward(
+                p["mamba"], normed, mc.get("ssm"), mc.get("conv"),
+                cfg.dt_rank_actual, cfg.ssm_chunk)
+        fused = 0.5 * (rms_norm(h_attn, p["ln_attn_out"], cfg.norm_eps) * p["beta_attn"]
+                       + rms_norm(h_mamba, p["ln_mamba_out"], cfg.norm_eps) * p["beta_mamba"])
+        x = x + fused
+        x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+        new_cache = dict(new_attn_cache or {})
+        if ctx.mode != "train":
+            new_cache["ssm"] = ssm_s
+            new_cache["conv"] = conv_s
+        return x, (new_cache or None), aux
+
+    if seg.kind in STATE_NAMES:
+        names = STATE_NAMES[seg.kind]
+        mc = ctx.cache if ctx.cache is not None else {}
+        state = tuple(mc[k] for k in names) if names[0] in mc else None
+        if seg.kind == "mlstm":
+            x, (state, conv_s) = mlstm_block_forward(
+                p, x, cfg.num_heads, state=state, conv_state=mc.get("conv"),
+                chunk_size=cfg.mlstm_chunk, decode=ctx.mode == "decode")
+        else:
+            x, (state, conv_s) = slstm_block_forward(
+                p, x, cfg.num_heads, state=state, conv_state=mc.get("conv"))
+        if ctx.mode == "train":
+            return x, None, aux
+        new = dict(zip(names, state), conv=conv_s)
+        if ctx.cache is None:
+            return x, new, aux
+        for k, t in new.items():                # the state, in place
+            ctx.cache[k].copy_(t)
+        return x, ctx.cache, aux
+
+    raise ValueError(seg.kind)
 
 
 def block_cache_init(cfg: ModelConfig, seg: Segment, batch: int, seq_len: int,
                      dtype, device) -> Dict[str, torch.Tensor]:
     """One layer's cache slice for this segment kind."""
-    _check_kind(seg)
-    c = attn_cache_init(cfg, seg, batch, seq_len, dtype, device)
+    if seg.kind in ("dense", "moe", "encoder", "xdecoder"):
+        return attn_cache_init(cfg, seg, batch, seq_len, dtype, device)
     if seg.kind == "hymba":
+        c = attn_cache_init(cfg, seg, batch, seq_len, dtype, device)
         c["ssm"], c["conv"] = mamba_state_init(batch, cfg.d_inner, cfg.ssm_state,
                                                cfg.d_conv, dtype, device)
-    return c
+        return c
+    H = cfg.num_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    if seg.kind == "mlstm":
+        d_inner = int(cfg.mlstm_proj_factor * cfg.d_model)
+        dk = int(cfg.mlstm_qk_factor * d_inner) // H
+        dv = d_inner // H
+        return {"C": torch.zeros((batch, H, dv, dk), **f32),
+                "n": torch.zeros((batch, H, dk), **f32),
+                "m": torch.full((batch, H), -30.0, **f32),
+                "conv": torch.zeros((batch, cfg.d_conv - 1, d_inner), dtype=dtype,
+                                    device=device)}
+    if seg.kind == "slstm":
+        dh = cfg.d_model // H
+        return {"c": torch.zeros((batch, H, dh), **f32),
+                "n": torch.zeros((batch, H, dh), **f32),
+                "m": torch.full((batch, H, dh), -30.0, **f32),
+                "h": torch.zeros((batch, H, dh), **f32),
+                "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_model), dtype=dtype,
+                                    device=device)}
+    raise ValueError(seg.kind)

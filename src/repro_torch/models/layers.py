@@ -1,7 +1,7 @@
 """Core transformer layers: norms, RoPE, GQA attention, MLPs.
 
-Port of ``repro/models/layers.py`` for the dense decoder path (no
-M-RoPE).  Attention implementations, as in the JAX package:
+Port of ``repro/models/layers.py``.  Attention implementations, as in
+the JAX package:
 
   dense        full [Sq, Sk] score matrix + mask — exact baseline for short
                sequences (the serving prefill buckets).
@@ -51,13 +51,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections=None) -> torch.Tensor:
     """Rotary embedding (LLaMA half-rotation layout).
 
-    x: [B, S, H, D]; positions: [B, S] int.  M-RoPE is not ported yet.
+    x: [B, S, H, D]; positions: [B, S] int — or [B, 3, S] for M-RoPE
+    (temporal / height / width position triplets; Qwen2-VL §2), where
+    ``mrope_sections`` gives the number of frequency pairs each component
+    drives (they sum to D // 2).
     """
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE is not ported to repro_torch yet (ROADMAP.md)")
     d2 = x.shape[-1] // 2
     inv = rope_freqs(x.shape[-1], theta, x.device)          # [d2]
-    angles = positions.float()[..., None] * inv             # [B, S, d2]
+    if mrope_sections is None:
+        angles = positions.float()[..., None] * inv         # [B, S, d2]
+    else:
+        assert positions.dim() == 3 and positions.shape[1] == 3, positions.shape
+        assert sum(mrope_sections) == d2, (mrope_sections, d2)
+        # which position component drives each frequency pair
+        comp = torch.repeat_interleave(
+            torch.arange(3, device=x.device),
+            torch.tensor(mrope_sections, device=x.device))   # [d2]
+        angles = positions.float()[:, comp].transpose(1, 2) * inv   # [B, S, d2]
     cos = torch.cos(angles)[..., None, :]                   # [B, S, 1, d2]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x[..., :d2].float(), x[..., d2:].float()
@@ -301,6 +311,11 @@ def decode_attention(q, k_cache, v_cache, k_positions, cur_pos,
 
 def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
+    """GELU MLP with biases (``jax.nn.gelu``'s default: the tanh form)."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
 
 
 # ---------------------------------------------------------- GQA head mapping

@@ -1,5 +1,5 @@
-"""Model assembly for the decoder-only, token-input LM (port of
-``repro/models/transformer.py``).
+"""Model assembly: the decoder-only LM over tokens or embeddings, and the
+encoder-decoder (port of ``repro/models/transformer.py``).
 
 Entry points (functions of (cfg, params, ...), as in the JAX package):
 
@@ -10,8 +10,8 @@ Entry points (functions of (cfg, params, ...), as in the JAX package):
                                   ``remat="full"`` each layer is recomputed
                                   in the backward (``torch.utils.checkpoint``)
   prefill                         writes the cache, returns last-position hidden;
-                                  without explicit ``positions`` its attention
-                                  runs the flash_attention kernel
+                                  where its mask positions are 0..S-1 its
+                                  attention runs the flash_attention kernel
   decode_step                     one token per sequence through the cache
 
 Each homogeneous segment runs as a Python loop over its stacked layers
@@ -21,8 +21,17 @@ takes a cache returns it (with any new entries, such as the paged ``len``).
 A model with meta tokens (hymba) runs a learned prefix of
 ``num_meta_tokens`` positions ahead of every prompt; ``forward_train``
 strips it from the hidden it returns.  An MoE model's ``forward_train``
-returns its aux losses averaged over the layers.  Encoder-decoder,
-embedding inputs and M-RoPE are not ported yet.
+returns its aux losses averaged over the layers.
+
+A model with ``input_mode == "embeds"`` (qwen2-vl) takes ``batch["embeds"]``
+[B, S, d] (the stubbed vision frontend's patch embeddings) and, under
+M-RoPE, ``batch["positions"]`` [B, 3, S]; its prefill runs the kernel only
+where the temporal row is ``0..S-1`` in every row, the one case where the
+kernel's index mask equals the reference's temporal one, and the plain
+attention otherwise.  ``prefill_routes`` counts prefills by route.  An
+encoder-decoder (seamless) runs its encoder over ``batch["src_embeds"]``
+[B, Sm, d] (the stubbed speech frontend's frames); ``prefill`` stores each
+decoder layer's memory KV in the cache (``xk`` / ``xv``), which decode reads.
 """
 
 from __future__ import annotations
@@ -42,13 +51,14 @@ from .layers import rms_norm
 
 NEG_INF = -1.0e9
 
+# prefills of a model with attention, by the route of their decoder
+# self-attention: "kernel" (flash_attention) or "plain"
+prefill_routes: Dict[str, int] = {"kernel": 0, "plain": 0}
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec or cfg.input_mode != "tokens" or cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs decoder-only token models without "
-            f"M-RoPE so far; encoder-decoder, embedding inputs and M-RoPE come "
-            f"in a later slice (ROADMAP.md, Queue 1 item 7)")
+
+def reset_prefill_routes() -> None:
+    for k in prefill_routes:
+        prefill_routes[k] = 0
 
 
 def cast_params(cfg: ModelConfig, params: dict) -> dict:
@@ -69,14 +79,19 @@ def cast_params(cfg: ModelConfig, params: dict) -> dict:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
+    # the token embedding also serves an embeddings model's text decode
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
                            lambda g, s, d: normal_init(g, s, d, 0.02)),
-        "segments": [stack_specs(block_param_specs(cfg, seg), seg.count)
-                     for seg in cfg.decoder_plan()],
-        "final_norm": ParamSpec((cfg.d_model,), ("embed",), ones_init),
     }
+    if cfg.is_encdec:
+        # the encoder consumes the stub frame embeddings directly
+        specs["encoder"] = [stack_specs(block_param_specs(cfg, seg), seg.count)
+                            for seg in cfg.encoder_plan()]
+        specs["enc_norm"] = ParamSpec((cfg.d_model,), ("embed",), ones_init)
+    specs["segments"] = [stack_specs(block_param_specs(cfg, seg), seg.count)
+                         for seg in cfg.decoder_plan()]
+    specs["final_norm"] = ParamSpec((cfg.d_model,), ("embed",), ones_init)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.padded_vocab),
                                      ("embed", "vocab"),
@@ -160,25 +175,55 @@ def _run_segment(cfg: ModelConfig, seg: Segment, seg_params: dict, x,
     return x, out, aux_sum
 
 
-def _input_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                  positions: Optional[torch.Tensor]):
-    """(x [B,S',d], positions [B,S'], default) with the meta-token prefix
-    ahead of the tokens (S' = num_meta_tokens + S): the prefix takes
-    positions 0..m-1 and the tokens' positions move up by m.  ``default``
-    says the positions are ``0..S'-1`` in every row (the caller passed
-    none), which the flash_attention prefill needs."""
-    x = embed_tokens(cfg, params, tokens)
-    b, s = tokens.shape
-    default = positions is None
-    if default:
-        positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+def _temporal_is_index(positions: torch.Tensor) -> bool:
+    """Whether the temporal row of [B, 3, S] positions is ``0..S-1`` in
+    every row.  Positions the caller built on the host are checked there;
+    positions already on the card cost one host read."""
+    t = positions[:, 0]
+    return bool((t == torch.arange(t.shape[1], dtype=t.dtype, device=t.device)).all())
+
+
+def _input_hidden(cfg: ModelConfig, params: dict, batch: dict):
+    """(x [B,S',d], positions [B,S'] or [B,3,S'], index) with the meta-token
+    prefix ahead of the input (S' = num_meta_tokens + S): the prefix takes
+    positions 0..m-1 and the input's positions move up by m.  ``index``
+    says the mask positions are ``0..S'-1`` in every row (the caller passed
+    none, or M-RoPE positions whose temporal row is the index), which the
+    flash_attention prefill needs."""
+    if cfg.input_mode == "embeds":
+        x = batch["embeds"].to(torch_dtype(cfg.compute_dtype))
+    else:
+        x = embed_tokens(cfg, params, batch["tokens"])
+    b, s = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        index = True
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    else:
+        positions = torch.as_tensor(positions)
+        index = positions.dim() == 3 and _temporal_is_index(positions)
+        positions = positions.to(x.device)
     m = cfg.num_meta_tokens
     if m:
         meta = params["meta_tokens"].to(x.dtype).expand(b, m, cfg.d_model)
         x = torch.cat([meta, x], dim=1)
-        mpos = torch.arange(m, dtype=positions.dtype, device=positions.device).expand(b, m)
-        positions = torch.cat([mpos, positions + m], dim=1)
-    return x, positions, default
+        mpos = torch.arange(m, dtype=positions.dtype, device=positions.device)
+        mpos = mpos.expand(positions.shape[:-1] + (m,))
+        positions = torch.cat([mpos, positions + m], dim=-1)
+    return x, positions, index
+
+
+def _encode(cfg: ModelConfig, params: dict, batch: dict, mode: str):
+    """Encoder stack over the stub frame embeddings -> (memory [B,Sm,d],
+    its positions).  In a prefill its attention runs the flash_attention
+    kernel without the causal mask; in training, the plain attention."""
+    x = batch["src_embeds"].to(torch_dtype(cfg.compute_dtype))
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    ctx = BlockCtx(mode=mode, positions=positions, default_positions=True)
+    for i, seg in enumerate(cfg.encoder_plan()):
+        x, _, _ = _run_segment(cfg, seg, params["encoder"][i], x, ctx, None)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps), positions
 
 
 # ------------------------------------------------------------------ forward
@@ -198,10 +243,13 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict
     backward; the ``flash_attention`` kernel has no backward and is not
     used here.
     """
-    _check_supported(cfg)
     params = cast_params(cfg, params)
-    x, positions, _ = _input_hidden(cfg, params, batch["tokens"], batch.get("positions"))
-    ctx = BlockCtx(mode="train", positions=positions)
+    memory = memory_pos = None
+    if cfg.is_encdec:
+        memory, memory_pos = _encode(cfg, params, batch, "train")
+    x, positions, _ = _input_hidden(cfg, params, batch)
+    ctx = BlockCtx(mode="train", positions=positions, memory=memory,
+                   memory_positions=memory_pos)
     aux_total: Dict[str, torch.Tensor] = {}
     for i, seg in enumerate(cfg.decoder_plan()):
         x, _, aux = _run_segment(cfg, seg, params["segments"][i], x, ctx, None)
@@ -219,28 +267,39 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None,
-               device="cuda") -> list:
-    """Stacked per-segment caches sized for ``seq_len`` total positions."""
-    _check_supported(cfg)
+               device="cuda", memory_len: Optional[int] = None) -> list:
+    """Stacked per-segment caches sized for ``seq_len`` total positions; an
+    encoder-decoder's cross-attention segments add ``xk`` / ``xv`` [count,
+    batch, memory_len, KVH, D] (``prefill`` fills them)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.compute_dtype)
     caches = []
     for seg in cfg.decoder_plan():
         layer = block_cache_init(cfg, seg, batch, seq_len, dt, dev)
-        caches.append({k: t.unsqueeze(0).repeat((seg.count,) + (1,) * t.dim())
-                       for k, t in layer.items()})
+        stacked = {k: t.unsqueeze(0).repeat((seg.count,) + (1,) * t.dim())
+                   for k, t in layer.items()}
+        if cfg.is_encdec and seg.kind == "xdecoder":
+            shape = (seg.count, batch, memory_len or seq_len, cfg.num_kv_heads,
+                     cfg.head_dim)
+            stacked["xk"] = torch.zeros(shape, dtype=dt, device=dev)
+            stacked["xv"] = torch.zeros(shape, dtype=dt, device=dev)
+        caches.append(stacked)
     return caches
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: list
             ) -> Tuple[torch.Tensor, list]:
     """Run the prompt, writing caches.  Returns (last hidden [B,d], cache)."""
-    _check_supported(cfg)
     params = cast_params(cfg, params)
-    x, positions, default_positions = _input_hidden(cfg, params, batch["tokens"],
-                                                    batch.get("positions"))
-    ctx = BlockCtx(mode="prefill", positions=positions,
-                   default_positions=default_positions)
+    memory = memory_pos = None
+    if cfg.is_encdec:
+        memory, memory_pos = _encode(cfg, params, batch, "prefill")
+        cache = _fill_cross_kv(cfg, params, cache, memory)
+    x, positions, index = _input_hidden(cfg, params, batch)
+    if any(seg.has_attention for seg in cfg.decoder_plan()):
+        prefill_routes["kernel" if index else "plain"] += 1
+    ctx = BlockCtx(mode="prefill", positions=positions, default_positions=index,
+                   memory=memory, memory_positions=memory_pos)
     new_caches = []
     for i, seg in enumerate(cfg.decoder_plan()):
         x, nc, _ = _run_segment(cfg, seg, params["segments"][i], x, ctx, cache[i])
@@ -249,20 +308,42 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: list
     return x[:, -1], new_caches
 
 
+def _fill_cross_kv(cfg: ModelConfig, params: dict, cache: list, memory) -> list:
+    """Each cross-attention layer's memory KV -> the cache's ``xk`` / ``xv``
+    (new tensors of the memory's length, as the JAX package stores them)."""
+    b, sm, _ = memory.shape
+    out = []
+    for i, seg in enumerate(cfg.decoder_plan()):
+        c = dict(cache[i])
+        if seg.kind == "xdecoder":
+            p = params["segments"][i]["xattn"]
+            for name, w in (("xk", p["wk"]), ("xv", p["wv"])):
+                c[name] = torch.stack([
+                    (memory @ w[l]).reshape(b, sm, cfg.num_kv_heads, cfg.head_dim)
+                    for l in range(seg.count)]).to(c[name].dtype)
+        out.append(c)
+    return out
+
+
 def decode_step(cfg: ModelConfig, params: dict, cache: list,
                 tokens: torch.Tensor, cur_pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, list]:
-    """One decode step.  tokens: [B] int32; cur_pos: [B] absolute position.
+    """One decode step.  tokens: [B] int32; cur_pos: [B] absolute position
+    (all three M-RoPE components take it).
 
-    ``cache`` is contiguous ({k, v, pos}) or paged ({k_pool, v_pool, table,
-    len}); paged attention runs the CUDA kernel for CUDA tensors and the
-    plain version for CPU tensors.
+    ``cache`` is contiguous ({k, v, pos}, plus an encoder-decoder's {xk,
+    xv}) or paged ({k_pool, v_pool, table, len}); paged attention runs the
+    CUDA kernel for CUDA tensors and the plain version for CPU tensors.
     Returns (logits [B, padded_vocab], cache).
     """
-    _check_supported(cfg)
     params = cast_params(cfg, params)
+    b = tokens.shape[0]
     x = embed_tokens(cfg, params, tokens[:, None])
-    ctx = BlockCtx(mode="decode", positions=cur_pos[:, None], cur_pos=cur_pos)
+    if cfg.mrope_sections is not None:
+        positions = cur_pos[:, None, None].expand(b, 3, 1)
+    else:
+        positions = cur_pos[:, None]
+    ctx = BlockCtx(mode="decode", positions=positions, cur_pos=cur_pos)
     new_caches = []
     for i, seg in enumerate(cfg.decoder_plan()):
         x, nc, _ = _run_segment(cfg, seg, params["segments"][i], x, ctx, cache[i])

@@ -252,8 +252,10 @@ class ServeEngine:
         tensor expanded over the layer axis, rewritten each step); a hymba
         segment adds its lanes' Mamba state, ``ssm`` [count, B, d_inner, N]
         fp32 and ``conv`` [count, B, d_conv - 1, d_inner].  A purely
-        recurrent segment holds per-lane state only (``block_cache_init``
-        raises for the xLSTM kinds, which are not ported yet)."""
+        recurrent segment (mLSTM, sLSTM) holds per-lane state only, fp32
+        state and the compute dtype's ``conv`` (``block_cache_init``); the
+        allocator still books its pages, as the JAX engine does, and no
+        pool reads them."""
         e = self.ecfg
         dt = torch_dtype(self.cfg.compute_dtype)
         dev = self.device

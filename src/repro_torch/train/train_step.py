@@ -53,7 +53,10 @@ def value_and_grad(cfg: ModelConfig, tcfg: TrainConfig, params: dict, batch: dic
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
         loss, metrics = loss_fn(cfg, tcfg, tree_unflatten(treedef, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not read (an embeddings model's token
+        # table) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(treedef, list(grads))
 

@@ -7,12 +7,19 @@ the data pipeline.
 copies must page the same bytes as the reference: the same store read
 through a region, leased, and tiered, gives the same bytes and counters.
 
-One deliberate divergence: ``core/pager.py`` repairs the lease runs the
-reference can never grant (ROADMAP.md, Queue 3 item 3).
-``PagingService.lease_run`` refuses a run that puts more pages on one
-metadata stripe than the stripe owns slots, and the new
-``PagingService.lease_run_limit`` says how much of a run fits.  The copy is
-held equal to its source outside those two functions (``REPAIRED``).
+Two deliberate divergences, both in ``core/pager.py``:
+
+* the lease runs the reference can never grant (ROADMAP.md, Queue 3 item
+  3): ``PagingService.lease_run`` refuses a run that puts more pages on one
+  metadata stripe than the stripe owns slots, and the new
+  ``PagingService.lease_run_limit`` says how much of a run fits;
+* the slot wait nothing can serve (Queue 3 item 4):
+  ``PagingService._alloc_slot_blocking`` fails a fill whose stripe has
+  every slot held by a quarantined dirty page (a write-back that failed
+  after the last ``retry_quarantined``) instead of waiting forever.
+
+The copy is held equal to its source outside those three functions
+(``REPAIRED``).
 """
 
 import ast
@@ -36,7 +43,8 @@ COPIES = ([f"core/{n}.py" for n in CORE] + [f"telemetry/{n}.py" for n in TELEMET
 
 
 # functions of a copy that diverge from the reference on purpose
-REPAIRED = {"core/pager.py": ("PagingService.lease_run", "PagingService.lease_run_limit")}
+REPAIRED = {"core/pager.py": ("PagingService.lease_run", "PagingService.lease_run_limit",
+                               "PagingService._alloc_slot_blocking")}
 
 
 def without(text, qualnames):

@@ -424,6 +424,9 @@ def flash_inputs(seed, dtype, device, b, h, kvh, sq, sk, d):
     (2, 4, 3, 1, 40, 40, 16, True, None),           # smoke shapes: D 16, padding
     (1, 8, 6, 2, 24, 24, 8, True, None),            # qwen2 smoke: D 8
     (1, 4, 4, 2, 33, 33, 10, True, None),           # D 10: no 16-byte loads
+    (1, 16, 16, 16, 1200, 1200, 64, False, None),   # seamless-m4t encoder
+    (4, 16, 16, 16, 32, 1200, 64, False, None),     # seamless-m4t cross-attention
+    (1, 32, 28, 4, 1536, 1536, 128, True, None),    # qwen2-vl prompt, 28 of 32 heads
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, nh, kvh, sq, sk, d,
                                               causal, window):
@@ -483,6 +486,58 @@ def test_engine_long_prompts_on_the_card_match_the_cpu(cuda):
     assert K.launch_counts["flash_attention"] == 4 * cfg.num_layers
     assert out["cuda"] == out["cpu"]
     assert all(r.prefill_ms > 0 for r in eng.finished) and not eng._pending_prefills
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "qwen2-vl-7b", "seamless-m4t-medium"])
+def test_zoo_rest_on_the_card_matches_the_cpu(cuda, arch):
+    """The rest of the zoo's smoke models (fp32): xlstm through the engine,
+    tokens equal to the CPU engine's; qwen2-vl (M-RoPE positions whose
+    temporal row is the index: the kernel route) and seamless
+    (encoder-decoder) through prefill + decode, logits within 1e-4 of the
+    CPU's, ``flash_attention`` launched on the card."""
+    import repro_torch.models as M
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.interop import tree_map
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(4)
+    K.reset_launch_counts()
+    if arch == "xlstm-1.3b":
+        prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32) for n in (3, 17, 70)]
+        out = {}
+        for dev in ("cpu", cuda):
+            eng = ServeEngine(cfg, params, EngineConfig(
+                max_batch=2, page_size=4, num_pages=64, max_pages_per_seq=24,
+                prefill_bucket=8), device=dev)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+            eng.run_until_drained(max_steps=500)
+            out[str(dev)] = [r.generated for r in sorted(eng.finished, key=lambda r: r.rid)]
+        assert out["cuda"] == out["cpu"]
+        return
+    b, s, sm = 2, 40, 50
+    batch = {"positions": torch.arange(s, dtype=torch.int32).expand(b, 3, s).clone(),
+             "embeds": torch.from_numpy(rng.standard_normal((b, s, cfg.d_model))
+                                        .astype(np.float32))}
+    kw = {}
+    if cfg.is_encdec:
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                                            .astype(np.int32)),
+                 "src_embeds": torch.from_numpy(rng.standard_normal((b, sm, cfg.d_model))
+                                                .astype(np.float32))}
+        kw = {"memory_len": sm}
+    logits = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        cache = M.init_cache(cfg, b, s + 4, device=dev, **kw)
+        _, cache = M.prefill(cfg, p, {k: v.to(dev) for k, v in batch.items()}, cache)
+        lg, _ = M.decode_step(cfg, p, cache, torch.tensor([3, 7], dtype=torch.int32, device=dev),
+                              torch.full((b,), s, dtype=torch.int32, device=dev))
+        logits[str(dev)] = lg.cpu()
+    assert K.launch_counts["flash_attention"] == cfg.num_layers * (3 if cfg.is_encdec else 1)
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b"])

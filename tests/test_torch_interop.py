@@ -66,7 +66,9 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "repro_torch.ckpt.checkpoint", "repro_torch.data.pipeline",
                 "repro_torch.launch.train", "repro_torch.models.moe",
                 "repro_torch.models.ssm", "repro_torch.configs.hymba_1p5b",
-                "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.phi3p5_moe"):
+                "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.phi3p5_moe",
+                "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1p3b",
+                "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.seamless_m4t_medium"):
         assert mod in res["imported"], f"{mod} was not walked"
 
 
@@ -160,11 +162,47 @@ def test_registry_offers_only_ported_architectures():
     assert get_config("mixtral-8x7b").num_experts == 8
     assert get_config("phi3.5-moe-42b-a6.6b").num_experts == 16
     assert get_config("hymba-1.5b").num_meta_tokens == 128
-    for arch in ("xlstm-1.3b", "qwen2-vl-7b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(arch)
+    # every architecture of the JAX package builds, equal to its reference
+    import dataclasses
+    from repro.configs import registry as ref_registry
+    from repro_torch.configs.registry import ARCH_IDS
+    assert set(ARCH_IDS) == set(ref_registry.ARCH_IDS)
+    for arch in ARCH_IDS:
+        for mine, ref in ((get_config(arch), ref_registry.get_config(arch)),
+                          (get_smoke_config(arch), ref_registry.get_smoke_config(arch))):
+            assert dataclasses.asdict(mine) == dataclasses.asdict(ref), arch
+    assert get_config("xlstm-1.3b").slstm_every == 8
+    assert get_config("qwen2-vl-7b").padded_heads == 32
+    assert get_config("seamless-m4t-medium").padded_vocab == 256256
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "qwen2-vl-7b", "seamless-m4t-medium"])
+def test_param_trees_of_the_rest_of_the_zoo_match_the_reference(arch):
+    """The port's parameter tree (keys, shapes, logical axes) equals the JAX
+    package's for the smoke config, and ``params_from_numpy`` carries such
+    a tree across with its padded heads' ``wo`` rows checked in every
+    attention and cross-attention (qwen2-vl pads 7 heads to 8)."""
+    from repro.models.transformer import param_specs as ref_specs
+    from repro_torch.models.transformer import init_params, param_specs
+
+    cfg = get_smoke_config(arch)
+    mine, ref = param_specs(cfg), ref_specs(ref_smoke_config(arch))
+    m_leaves, m_def = interop.tree_flatten(mine)
+    r_leaves = jax.tree_util.tree_flatten_with_path(
+        ref, is_leaf=lambda x: hasattr(x, "logical_axes"))[0]
+    assert len(m_leaves) == len(r_leaves)
+    for got, (path, want) in zip(m_leaves, r_leaves):
+        assert (got.shape, got.logical_axes) == (tuple(want.shape), tuple(want.logical_axes)), \
+            jax.tree_util.keystr(path)
+    tree = interop.tree_map(lambda t: t.numpy(), init_params(cfg, 0, device="cpu"))
+    back = interop.params_from_numpy(tree, device="cpu", cfg=cfg)
+    assert interop.tree_flatten(back)[1] == m_def
+    if cfg.padded_heads != cfg.num_heads:
+        tree["segments"][0]["attn"]["wo"][0, -1, 0] = 1.0
+        with pytest.raises(ValueError, match="padded-head"):
+            interop.params_from_numpy(tree, device="cpu", cfg=cfg)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

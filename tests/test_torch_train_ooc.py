@@ -12,7 +12,12 @@ through ``params=``:
   where lease runs put more pages on a stripe than it owns and the
   reference's own ``TestDifferential`` never finishes (the sweep's chunks
   are now cut to fit); a run through transient ``ChaosStore`` faults
-  against one without;
+  against one without, and one whose faults reach the step's retry (one-page
+  sweep chunks, no read-ahead);
+* a hard outage of the moments store: the step raises ``OSError``, and after
+  the revive replays bitwise (ROADMAP.md, Queue 3 item 4: a write-back that
+  failed late left a stripe of quarantined pages that no fill could evict;
+  the paging core now fails such a fill instead of waiting forever);
 * the port's paged ``OOCTrainer`` against the reference's paged one over
   three steps: losses rtol 1e-5, parameters atol 5e-5 + rtol 1e-5, m and v
   within 1e-4 of their norm (the tolerances of ``test_torch_train.py``);
@@ -249,6 +254,73 @@ def test_transient_faults_complete_bitwise(ref_params, resident):
         assert tr.stats["io_errors"] == tr.stats["step_retries"]
         assert losses == ref_losses
         tr.drain_quarantine()
+        assert_state_equal(tr.state_dict(), ref_state)
+    finally:
+        tr.close()
+
+
+def test_transient_faults_reach_the_step_retry(ref_params, resident):
+    """The same faults where the demand reads take them: one-page sweep
+    chunks and no read-ahead on the moments, so each chunk's lease run
+    posts only the two moment pages it waits on and a failed fill raises
+    in the sweep.  The step retries from its stash and ends bitwise equal
+    to the run without faults (the reference's
+    ``TestChaosTraining::test_transient_faults_retry_bitwise``)."""
+    ref_state, ref_losses = resident
+    chaos = []
+    tr = make(ref_params, paged=True,
+              ocfg_kw=dict(paged_kw(ref_params, PAGE, 2), max_step_retries=8,
+                           sweep_chunk_pages=1, advise_moments=False),
+              moments_store_factory=chaos_factory(5, chaos))
+
+    def run_with_faults():
+        losses = []
+        for i, b in enumerate(batches()):
+            if i == 1:
+                chaos[0].fail_next("read", 3)
+                chaos[0].fail_next("write", 2)
+            losses.append(tr.step(b)["loss"])
+        return losses
+
+    try:
+        losses = within(run_with_faults)
+        assert chaos[0].injected_read_errors == 3
+        assert losses == ref_losses
+        assert tr.stats["io_errors"] > 0
+        assert tr.stats["step_retries"] > 0
+        tr.drain_quarantine()
+        assert_state_equal(tr.state_dict(), ref_state)
+    finally:
+        tr.close()
+
+
+def test_outage_surfaces_oserror_then_resumes(ref_params, resident):
+    """A hard outage of the moments store: the step raises ``OSError``
+    (never silently corrupts), and after the revive the same step replays
+    bitwise from the stashed grads and the chunk done-set (the reference's
+    ``TestChaosTraining::test_outage_surfaces_oserror_then_resumes``)."""
+    ref_state, ref_losses = resident
+    chaos = []
+    tr = make(ref_params, paged=True,
+              ocfg_kw=dict(paged_kw(ref_params, PAGE, 2), max_step_retries=2),
+              moments_store_factory=chaos_factory(7, chaos))
+
+    def outage():
+        bs = batches()
+        losses = [tr.step(bs[0])["loss"]]
+        chaos[0].kill()
+        with pytest.raises(OSError):
+            tr.step(bs[1])
+        assert tr.stats["io_errors"] > 0
+        assert tr.step_no == 1          # the failed step did not count
+        chaos[0].revive()
+        tr.drain_quarantine()
+        losses.append(tr.step(bs[1])["loss"])
+        losses.append(tr.step(bs[2])["loss"])
+        return losses
+
+    try:
+        assert within(outage) == ref_losses
         assert_state_equal(tr.state_dict(), ref_state)
     finally:
         tr.close()

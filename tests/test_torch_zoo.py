@@ -1,22 +1,28 @@
-"""PyTorch port: the MoE and hybrid decoders against the JAX package, fp32.
+"""PyTorch port: the MoE, hybrid and recurrent decoders against the JAX
+package, fp32.
 
-The smoke configs of mixtral-8x7b, phi3.5-moe-42b-a6.6b and hymba-1.5b
-(MoE blocks; attention and Mamba side by side with meta tokens and
-sliding windows), the port's seeded weights handed to the JAX package
-through numpy, inputs from numpy seeds:
+The smoke configs of mixtral-8x7b, phi3.5-moe-42b-a6.6b, hymba-1.5b and
+xlstm-1.3b (MoE blocks; attention and Mamba side by side with meta tokens
+and sliding windows; mLSTM and sLSTM blocks with per-lane state only),
+and for training also qwen2-vl-7b (patch embeddings, M-RoPE) and
+seamless-m4t-medium (encoder-decoder), the port's seeded weights handed
+to the JAX package through numpy, inputs from numpy seeds:
 
-* ``prefill`` + greedy ``decode_step``: logits within 1e-4 (the tolerance
+* ``prefill`` + greedy ``decode_step`` (xlstm's: ``test_torch_xlstm.py``):
+  logits within 1e-4 (the tolerance
   of the dense parity in ``test_torch_models.py``), tokens equal;
 * ``forward_train`` hidden and aux within 1e-4, and ``loss_fn``'s loss
   (rtol 1e-5) and gradient norm (rtol 1e-4, as ``test_torch_train.py``),
   with ``remat="full"`` and without (the two bitwise equal in the port);
 * the serving engine against the JAX engine for prompts whose prefill fits
   the window, with a registered prefix and copy-on-write: tokens and
-  counters equal;
+  counters equal (xlstm-1.3b too, whose lanes hold state only);
 * past the window, the engine against the JAX package's contiguous decode
   of each prompt alone (the JAX engine installs its prefill ring there as
   if it were contiguous; ROADMAP.md, divergences of the reference);
-* the serving and training launchers on the CPU with ``--smoke``.
+* the serving and training launchers on the CPU with ``--smoke`` (the
+  stub-frontend architectures train; the engine refuses them, as the JAX
+  engine does).
 """
 
 from functools import partial
@@ -38,8 +44,11 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.interop import tree_flatten, tree_map
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.train import main as train_main
+from repro_torch.launch.train import stub_frontend
 
 ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b"]
+ENGINE_ARCHS = ARCHS + ["xlstm-1.3b"]         # its decode: test_torch_xlstm.py
+TRAIN_ARCHS = ENGINE_ARCHS + ["qwen2-vl-7b", "seamless-m4t-medium"]
 WINDOW = 8                  # the smoke configs' window (phi has none: the same sizes)
 TOL = dict(atol=1e-4, rtol=1e-4)
 COUNTERS = ("prefix_hits", "cow_copies", "steps", "prefills", "evictions",
@@ -52,7 +61,7 @@ def zoo():
     seeded weights, fed to the JAX package through numpy (its own eager
     initialisation of these trees takes seconds on the CPU)."""
     out = {}
-    for arch in ARCHS:
+    for arch in TRAIN_ARCHS:
         cfg = get_smoke_config(arch)
         params = M.init_params(cfg, seed=0, device="cpu")
         out[arch] = (ref_smoke_config(arch), tree_map(lambda t: jnp.asarray(t.numpy()), params),
@@ -89,15 +98,23 @@ def grad_norm(leaves):
     return float(np.sqrt(sum(float(np.sum(np.asarray(g, np.float64) ** 2)) for g in leaves)))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_forward_train_and_loss_match_reference(zoo, arch):
-    ref_cfg, ref_params, cfg, params = zoo[arch]
-    rng = np.random.default_rng(1)
+def train_batch(cfg, seed):
+    """20 positions of next-token labels; a stub-frontend model's
+    embeddings as ``launch/train.py`` draws them."""
+    rng = np.random.default_rng(seed)
     t = rng.integers(0, cfg.vocab_size, size=(2, 21)).astype(np.int32)
     batch = {"tokens": t[:, :-1].copy(), "labels": t[:, 1:].copy()}
+    return next(stub_frontend(cfg, [batch], seed))
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_forward_train_and_loss_match_reference(zoo, arch):
+    ref_cfg, ref_params, cfg, params = zoo[arch]
+    batch = train_batch(cfg, 1)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
     rh, raux = jax.jit(partial(RM.forward_train, ref_cfg))(
-        ref_params, {"tokens": jnp.asarray(batch["tokens"])})
-    th, taux = M.forward_train(cfg, params, {"tokens": torch.from_numpy(batch["tokens"])})
+        ref_params, {k: jnp.asarray(v) for k, v in inputs.items()})
+    th, taux = M.forward_train(cfg, params, {k: torch.from_numpy(v) for k, v in inputs.items()})
     assert th.shape == (2, 20, cfg.d_model)          # the meta prefix is stripped
     np.testing.assert_allclose(th.numpy(), np.asarray(rh), **TOL)
     assert set(taux) == set(raux) == ({"moe_lb_loss", "moe_z_loss", "moe_drop_frac"}
@@ -148,7 +165,7 @@ def within_window(mod, cfg, make):
     return eng, reqs
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_engine_within_the_window_matches_reference_engine(zoo, arch, monkeypatch):
     ref_cfg, ref_params, cfg, params = zoo[arch]
     monkeypatch.setattr(jax_engine.T, "prefill", jax.jit(RM.prefill, static_argnums=0))
@@ -209,11 +226,15 @@ def test_engine_past_the_window_matches_reference_contiguous_decode(zoo, arch):
         assert r.generated == contiguous_decode(ref_cfg, ref_params, r.prompt, 6), r.rid
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_launchers_run_on_cpu(arch, capsys):
-    assert serve_main(["--arch", arch, "--smoke", "--device", "cpu",
-                       "--requests", "2", "--max-new", "3"]) == 0
-    assert "served 2/2 requests, 6 tokens" in capsys.readouterr().out
+    served = serve_main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--requests", "2", "--max-new", "3"])
+    if arch in ENGINE_ARCHS:
+        assert served == 0
+        assert "served 2/2 requests, 6 tokens" in capsys.readouterr().out
+    else:
+        assert served == 2 and "decoder-only token models" in capsys.readouterr().err
     assert train_main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
                        "--batch", "2", "--seq", "16"]) == 0
     losses = [float(ln.split()[3]) for ln in capsys.readouterr().out.splitlines()
