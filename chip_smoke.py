@@ -216,6 +216,24 @@ Phases, each printing one JSON line:
             prefill (encoder and cross non-causal, decoder causal), all
             hopper.  Prints prefill (and encode) ms, decode tok/s, peak
             memory and the counts.
+11. distributed  the distribution slice under NCCL at world size 1 (a
+            file store under build/, a (1, 1) ("data", "model")
+            DeviceMesh; no gloo, no fallback), printing the NCCL version:
+            (a) the meta-device dry run of all 33 cells x 2 production
+            meshes, every record ok, per-device GB and how many fit the
+            card; (b) the data-parallel ZeRO-1 train cell, full-width
+            smollm-135m from phase 8's weights and batches (4 x 2048, 3
+            steps), params, m and v bitwise ``train_step``'s after every
+            step, step ms in turns with it; (c) ``compressed_all_reduce``
+            on that gradient tree beside an fp32 all_reduce, ms and bytes;
+            (d) shard-local MoE, TP at mixtral-8x7b's widths and EP at
+            phi3.5-moe's on 4 x 512 tokens, fp32 within 1e-5 and bf16
+            within 3e-2 (row norm) of the dense dispatch, both timed; (e)
+            phase 8's paged state through a ``HostArrayStore`` and
+            ``restore_train_state_elastic`` onto the mesh, one batched
+            read, local shards bitwise equal; (f) qwen2-1.5b's prefill cell
+            at 4 x 1024, logits bitwise ``T.prefill``'s, its 28
+            flash_attention launches all hopper.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
@@ -380,6 +398,13 @@ ZOO_FLASH_CASES = {"hymba_1728_w1024": "hymba-1.5b", "mixtral_4600_w4096": "mixt
                    "seamless_enc_1200": "seamless-m4t-medium",
                    "seamless_cross_32x1200": "seamless-m4t-medium",
                    "qwen2vl_1536": "qwen2-vl-7b"}
+# phase 11: the distribution slice at world size 1 under NCCL: the dry run's
+# 33 cells x 2 production meshes, the MoE widths of mixtral-8x7b (TP) and
+# phi3.5-moe (EP) on 4 x 512 tokens, qwen2-1.5b's prefill cell at 4 x 1024
+DIST_DRY_RECORDS = 66
+DIST_MOE_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
+DIST_MOE_TOKENS = (4, 512)
+DIST_PREFILL = (4, 1024)
 # phase 10: the rest of the zoo at full width, nothing cut (bf16, random
 # weights from seed 0 made on the card).  xlstm-1.3b through ServeEngine:
 # its prompts x ZOO_NEW_TOKENS, batch 4; the fp32 check at 8 of 48 blocks
@@ -1718,7 +1743,9 @@ def rel_norm(a, b) -> float:
 
 def phase_train(torch, K, CK):
     """Full-width smollm-135m training at batch 4 x 2048 (phase 8).
-    Returns the page copies' launches and variants of the paged run."""
+    Returns the page copies' launches and variants of the paged run, and
+    what phase 11 starts from (the seed-0 weights, the batches, the train
+    config and the paged run's final state)."""
     import faulthandler
 
     import numpy as np
@@ -1885,7 +1912,9 @@ def phase_train(torch, K, CK):
           f"train: Trainer and OOCTrainer losses {loss_rel} apart (relative)")
     check(param_rel <= TRAIN_PARAM_REL_TOL,
           f"train: Trainer and OOCTrainer parameters {param_rel} apart (norm-relative)")
-    return pag["launches"], pag["copy_variants"]
+    # phase 11 trains from the same start and restores the paged state
+    handoff = {"params0": params0, "batches": batches, "tcfg": tcfg, "state": pag["state"]}
+    return pag["launches"], pag["copy_variants"], handoff
 
 
 # ------------------------------------------------------------------ main
@@ -2539,6 +2568,307 @@ def phase_zoo_rest(torch, M, K):
     return out
 
 
+# ----------------------------------------------------------------- phase 11
+
+
+def timed_in_turns(torch, fns: dict, turns: int):
+    """Each named call ``turns`` times, the order alternating every turn
+    (a, b, b, a, ...); device-synchronised wall ms per call, by name."""
+    names, out = list(fns), {n: [] for n in fns}
+    for i in range(turns):
+        for n in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[n]()
+            torch.cuda.synchronize()
+            out[n].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def dist_dry_run():
+    """(a) every runnable cell on both production meshes, on the meta
+    device: each record ok; per-device argument GB and whether it fits."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.registry import runnable_cells
+    from repro_torch.launch.dryrun import run_cell
+
+    t0 = time.perf_counter()
+    recs = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        for arch, shape in runnable_cells():
+            for multi in (False, True):
+                recs.append(run_cell(arch, shape, multi, ROOT / "build" / "dryrun"))
+    bad = [f"{r['arch']} {r['shape']} {r['mesh']}: {r.get('error')}" for r in recs if not r["ok"]]
+    check(len(recs) == DIST_DRY_RECORDS and not bad, f"dry run: {len(recs)} records, failed {bad}")
+    return {"records": len(recs), "seconds": time.perf_counter() - t0,
+            "hbm_bytes": recs[0]["hbm_bytes"], "fit": sum(r["fits"] for r in recs),
+            "per_device_gb": {f"{r['arch']}/{r['shape']}/{r['mesh']}":
+                              r["memory"]["argument_bytes"] / 1e9 for r in recs}}
+
+
+def dist_train(torch, mesh, handoff):
+    """(b) the data-parallel ZeRO-1 train cell at world size 1 against
+    ``train_step`` from phase 8's weights and batches, a step of each in
+    turns; losses, params, m and v bitwise equal.  Returns the report and
+    the gradient tree of the first batch (for (c))."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.interop import from_numpy, tree_flatten, tree_map
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.train_step import step_grads, train_step
+
+    cfg, tcfg = get_config("smollm-135m"), handoff["tcfg"]
+    with use_mesh(mesh, rules_for("train", cfg)):
+        cell = SP.build_cell(cfg, ShapeConfig("train_2k", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                             mesh, tcfg)
+    batches = [{k: from_numpy(v, "cuda") for k, v in b.items()} for b in handoff["batches"]]
+    ref = {"params": tree_map(lambda a: from_numpy(a, "cuda"), handoff["params0"])}
+    ref["state"] = init_state(ref["params"])
+    run = {"params": tree_map(torch.clone, ref["params"])}
+    run["state"] = SP.local_tree(init_state(run["params"]), cell.in_specs[1], mesh)
+    grads = step_grads(cfg, tcfg, ref["params"], batches[0])[1]
+    losses = {"train_step": [], "cell": []}
+    ref_batches = iter(batches)
+    cell_batches = iter([SP.local_tree(b, {k: cell.in_specs[2][k] for k in b}, mesh)
+                         for b in batches])
+
+    def ref_step():
+        ref["params"], ref["state"], m = train_step(cfg, tcfg, ref["params"], ref["state"],
+                                                    next(ref_batches))
+        losses["train_step"].append(m["loss"].item())
+
+    def cell_step():
+        run["params"], run["state"], m = cell.fn(run["params"], run["state"],
+                                                 next(cell_batches))
+        losses["cell"].append(m["loss"].item())
+
+    ms = timed_in_turns(torch, {"train_step": ref_step, "cell": cell_step}, len(batches))
+    for name, a, b in (("params", run["params"], ref["params"]),
+                       ("m", run["state"].m, ref["state"].m),
+                       ("v", run["state"].v, ref["state"].v)):
+        equal = all(torch.equal(x, y) for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+        check(equal, f"distributed train: {name} not bitwise train_step's")
+    check(losses["cell"] == losses["train_step"], f"distributed train: losses {losses}")
+    check(int(run["state"].step) == len(batches), "distributed train: step counter")
+    return {"steps": len(batches), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "losses": losses["cell"], "bitwise_equal": True, "step_ms": ms,
+            "note": "the first pair warms both paths"}, grads
+
+
+def dist_compressed(torch, group, grads):
+    """(c) ``compressed_all_reduce`` on the gradient tree: ms and bytes
+    beside a plain fp32 ``all_reduce`` of the same tree; at world size 1 the
+    mean is each leaf's own dequantized value, bitwise."""
+    from repro_torch.distributed.collectives import compressed_all_reduce, quantize_int8
+    from repro_torch.interop import tree_flatten
+
+    import torch.distributed as dist
+
+    leaves = tree_flatten(grads)[0]
+    errs = [torch.zeros_like(g, dtype=torch.float32) for g in leaves]
+    out = {}
+
+    def compressed():
+        out["c"] = [compressed_all_reduce(g, group, e) for g, e in zip(leaves, errs)]
+
+    def plain():
+        bufs = [g.float().clone() for g in leaves]
+        for b in bufs:
+            dist.all_reduce(b, group=group)
+
+    ms = timed_in_turns(torch, {"compressed": compressed, "fp32_all_reduce": plain}, 6)
+    for g, e, (mean, new_err) in zip(leaves, errs, out["c"]):
+        q, scale, want_err = quantize_int8(g, e)
+        check(torch.equal(mean, q.float() * scale) and torch.equal(new_err, want_err),
+              "compressed_all_reduce: not the dequantized value at world size 1")
+    n = sum(g.numel() for g in leaves)
+    return {"leaves": len(leaves), "elements": n, "int8_payload_bytes": n + 4 * len(leaves),
+            "fp32_payload_bytes": 4 * n, "ms": ms, "note": "the first turn warms both"}
+
+
+def dist_moe(torch, mesh, flush):
+    """(d) shard-local MoE, TP at mixtral-8x7b's widths and EP at
+    phi3.5-moe's, on DIST_MOE_TOKENS tokens: fp32 within 1e-5 of the dense
+    dispatch and bf16 within 3e-2 (row norm) of bf16 dense; both timed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models.common import init_param_tree
+    from repro_torch.models.moe import _moe_forward_dense, moe_forward, moe_param_specs
+
+    rows = {}
+    for arch in DIST_MOE_ARCHS:
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with torch.device("cuda"):
+            p32 = init_param_tree(moe_param_specs(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                                  cfg.moe_sharding), gen, torch.float32, "cuda")
+            x32 = torch.randn(DIST_MOE_TOKENS + (cfg.d_model,), generator=gen)
+        row = {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "experts": cfg.num_experts,
+               "top_k": cfg.top_k, "sharding": cfg.moe_sharding,
+               "capacity_factor": cfg.capacity_factor, "tokens": list(DIST_MOE_TOKENS)}
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            p = {k: v.to(dt) for k, v in p32.items()}
+            x = x32.to(dt)
+
+            def local(p=p, x=x):
+                with use_mesh(mesh):
+                    return moe_forward(p, x, cfg.top_k, cfg.capacity_factor, shard_local=True,
+                                       moe_sharding=cfg.moe_sharding)
+
+            def dense(p=p, x=x):
+                return _moe_forward_dense(p, x, cfg.top_k, cfg.capacity_factor)
+
+            (y, aux), (y_ref, aux_ref) = local(), dense()
+            if dtype == "float32":
+                err = (y - y_ref).abs().max().item()
+                check(torch.allclose(y, y_ref, atol=1e-5, rtol=1e-5),
+                      f"{arch} shard-local MoE fp32: {err} from dense")
+            else:
+                err = max_row_rel_err(y, y_ref, f"{arch} shard-local MoE bf16")
+                check(err <= 3e-2, f"{arch} shard-local MoE bf16: row error {err}")
+            local_ms, _ = time_ms(torch, local, flush, reps=10, warmup=2)
+            dense_ms, _ = time_ms(torch, dense, flush, reps=10, warmup=2)
+            row[dtype] = {"max_err" if dtype == "float32" else "max_row_rel_err": err,
+                          "shard_local_ms": local_ms, "dense_ms": dense_ms,
+                          "drop_frac": float(aux["moe_drop_frac"])}
+            del p, x, y, y_ref
+        rows[arch] = row
+        del p32, x32
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dist_elastic(torch, mesh, state):
+    """(e) phase 8's paged ``OOCTrainer`` state saved to a
+    ``HostArrayStore`` and restored onto the mesh through one batched read;
+    every local shard bitwise equal to the saved leaf."""
+    import numpy as np
+
+    from repro_torch.ckpt.checkpoint import save_tree_to_store
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import HostArrayStore
+    from repro_torch.distributed.elastic import restore_train_state_elastic
+    from repro_torch.interop import to_numpy, tree_flatten, tree_map
+
+    nbytes = sum(np.asarray(a).nbytes for a in tree_flatten(state)[0])
+    store = HostArrayStore(np.zeros(nbytes + 4096, np.uint8))
+    t0 = time.perf_counter()
+    manifest = save_tree_to_store(store, state)
+    save_s = time.perf_counter() - t0
+    store.reset_stats()
+    like = tree_map(lambda a: np.zeros_like(np.asarray(a)), state)
+    t0 = time.perf_counter()
+    restored, report = restore_train_state_elastic(get_config("smollm-135m"), mesh, store,
+                                                   manifest, like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(store.num_reads == 1, f"elastic restore: {store.num_reads} store reads, one expected")
+    placed = {"params": restored["params"], "m": restored["opt"]["m"],
+              "v": restored["opt"]["v"]}
+    saved = {"params": state["params"], "m": state["opt"]["m"], "v": state["opt"]["v"]}
+    leaves = 0
+    for a, b in zip(tree_flatten(placed)[0], tree_flatten(saved)[0]):
+        local = a.to_local()
+        check(local.device.type == "cuda", "elastic restore: a shard off the card")
+        check(np.array_equal(to_numpy(local), np.asarray(b)),
+              "elastic restore: a local shard differs from the saved leaf")
+        leaves += 1
+    return {"bytes": nbytes, "leaves": leaves, "store_reads": store.num_reads,
+            "save_s": save_s, "restore_s": restore_s, "devices": report.devices,
+            "replicated_leaves": report.replicated_leaves,
+            "sharded_leaves": report.sharded_leaves}
+
+
+def dist_prefill(torch, K, FK, mesh):
+    """(f) the prefill cell of full-width qwen2-1.5b on the mesh, counts
+    zeroed just before and read just after: logits bitwise ``T.prefill``'s,
+    every flash_attention launch on the Hopper variant."""
+    import numpy as np
+
+    import repro_torch.models.transformer as T
+    from repro_torch import torch_dtype
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+
+    cfg = get_config("qwen2-1.5b")
+    params = device_params(torch, cfg, torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, DIST_PREFILL, dtype=np.int64).astype(np.int32)).to("cuda")
+    shape = ShapeConfig("prefill_1k", DIST_PREFILL[1], DIST_PREFILL[0], "prefill")
+    with use_mesh(mesh, rules_for("prefill", cfg)):
+        cell = SP.build_cell(cfg, shape, mesh)
+    local = SP.local_tree({"tokens": tokens}, cell.in_specs[1], mesh)
+    cell.fn(params, local)                                       # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    FK.reset_variant_counts()
+    t0 = time.perf_counter()
+    logits, _ = cell.fn(params, local)
+    torch.cuda.synchronize()
+    cell_ms = (time.perf_counter() - t0) * 1e3
+    launches, variants = dict(K.launch_counts), dict(FK.variant_counts)
+    cache = T.init_cache(cfg, DIST_PREFILL[0], DIST_PREFILL[1], torch_dtype(cfg.compute_dtype),
+                         device="cuda")
+    hidden, _ = T.prefill(cfg, params, {"tokens": tokens}, cache)
+    want = T.lm_logits(cfg, params, hidden)
+    check(torch.equal(logits, want), "distributed prefill: logits not bitwise T.prefill's")
+    check(bool(torch.isfinite(logits).all()), "distributed prefill: non-finite logits")
+    n = launches["flash_attention"]
+    check(n == cfg.num_layers and variants == {"hopper": n, "generic": 0},
+          f"distributed prefill: flash_attention launches {n}, variants {variants}")
+    del params, cache, hidden
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "batch": DIST_PREFILL[0], "prompt_tokens": DIST_PREFILL[1],
+            "cell_ms": cell_ms, "logits_bitwise_equal": True, "launches": launches,
+            "flash_attention_variants": variants}
+
+
+def phase_distributed(torch, K, FK, handoff):
+    """Phase 11: the distribution slice under NCCL at world size 1 (a file
+    store under build/), on a (1, 1) ``(data, model)`` DeviceMesh.  Returns
+    the prefill cell's kernel launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import init_process_group
+
+    t_phase = time.perf_counter()
+    store = ROOT / "build" / "dist" / "pg_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    init_process_group("cuda", f"file://{store}", world_size=1, rank=0)
+    try:
+        check(dist.get_backend() == "nccl", f"distributed: backend {dist.get_backend()}")
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        out = {"backend": dist.get_backend(), "nccl_version": list(torch.cuda.nccl.version()),
+               "torch": torch.__version__, "mesh": {"data": 1, "model": 1}}
+        out["dry_run"] = dist_dry_run()
+        out["train"], grads = dist_train(torch, mesh, handoff)
+        out["compressed_all_reduce"] = dist_compressed(torch, mesh.get_group("data"), grads)
+        del grads
+        torch.cuda.empty_cache()
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        out["moe"] = dist_moe(torch, mesh, flush)
+        del flush
+        out["elastic"] = dist_elastic(torch, mesh, handoff["state"])
+        out["prefill"] = dist_prefill(torch, K, FK, mesh)
+        out["seconds"] = time.perf_counter() - t_phase
+        emit({"phase": "distributed", **out})
+    finally:
+        dist.destroy_process_group()
+    return out["prefill"]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2635,7 +2965,7 @@ def main() -> int:
 
     # 8. training: full-width smollm-135m, the resident Trainer and the
     # out-of-core OOCTrainer (its grad phase streams through the page copies)
-    train_launches, train_copy_variants = phase_train(torch, K, CK)
+    train_launches, train_copy_variants, handoff = phase_train(torch, K, CK)
 
     # 9. the MoE and hybrid decoders, and llama3-8b / deepseek-7b, served at
     # full width (the MoE models' depth cut)
@@ -2645,6 +2975,13 @@ def main() -> int:
     # path and seamless-m4t-medium's encoder-decoder, at full width
     rest = phase_zoo_rest(torch, M, K)
     rest_launches = {a: c["launches"] for a, c in rest.items()}
+
+    # 11. distribution under NCCL at world size 1: the dry run of every
+    # cell, the data-parallel ZeRO-1 train cell, the int8 reduction,
+    # shard-local MoE, the elastic restore and qwen2-1.5b's prefill cell
+    from repro_torch.kernels.flash_attention import kernel as FK
+    dist_launches = phase_distributed(torch, K, FK, handoff)
+    del handoff
 
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
@@ -2659,7 +2996,8 @@ def main() -> int:
                                     "weight_pager": weight_launches[name],
                                     "train": train_launches[name],
                                     "zoo": {a: n[name] for a, n in zoo_launches.items()},
-                                    "zoo_rest": {a: n[name] for a, n in rest_launches.items()}},
+                                    "zoo_rest": {a: n[name] for a, n in rest_launches.items()},
+                                    "distributed": dist_launches[name]},
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"]}

@@ -28,7 +28,7 @@ Fault-tolerance properties (DESIGN.md §4):
     to checkpoint persistence);
   * restart — ``latest_step`` + ``restore`` resume exactly;
   * elastic — restore only reads manifests + npy files, so a different mesh
-    can re-shard on load (the distribution slice, not ported yet).
+    can re-shard on load (``distributed/elastic.restore_train_state_elastic``).
 """
 
 from __future__ import annotations

@@ -1,14 +1,16 @@
 """Architecture registry of the port: ``--arch <id>`` -> (full, smoke) config.
 
 Mirrors ``repro/configs/registry.py``: every architecture of the JAX
-package, with its own copy of each config module.
+package, with its own copy of each config module, and the dry run's cells
+(``runnable_cells`` / ``skipped_cells``).
 """
 
 from __future__ import annotations
 
 import importlib
+from typing import List, Tuple
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeConfig
 
 _MODULES = {
     "smollm-135m": "smollm_135m",
@@ -38,3 +40,34 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _mod(arch).smoke_config()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def runnable_cells() -> List[Tuple[str, str]]:
+    """All (arch, shape) dry-run cells, with documented skips applied.
+
+    long_500k runs only for sub-quadratic archs (DESIGN.md §5); every arch
+    has a decode path (seamless is enc-DEC), so decode shapes always run.
+    """
+    cells = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if shape.name == "long_500k" and not cfg.sub_quadratic:
+                continue  # documented skip: pure full attention
+            cells.append((arch, shape.name))
+    return cells
+
+
+def skipped_cells() -> List[Tuple[str, str, str]]:
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        if not cfg.sub_quadratic:
+            out.append((arch, "long_500k",
+                        "pure full attention — 500k decode cache requires "
+                        "sub-quadratic attention (DESIGN.md §5)"))
+    return out

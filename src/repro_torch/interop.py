@@ -17,7 +17,7 @@ Two rules the parity tests and later slices depend on:
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,11 +25,17 @@ import torch
 # treedef nodes: ("leaf",) | ("none",) | (kind, keys_or_len_or_type, children)
 
 
-def tree_flatten(tree: Any) -> Tuple[List[Any], tuple]:
-    """Leaves in JAX order (dict keys sorted) and a treedef to rebuild."""
+def tree_flatten(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None
+                 ) -> Tuple[List[Any], tuple]:
+    """Leaves in JAX order (dict keys sorted) and a treedef to rebuild.
+    ``is_leaf``, as in ``jax.tree_util``, stops the walk at a node it
+    accepts (a tree of sharding specs has tuples for leaves)."""
     leaves: List[Any] = []
 
     def walk(node):
+        if is_leaf is not None and is_leaf(node):
+            leaves.append(node)
+            return ("leaf",)
         if node is None:
             return ("none",)
         if isinstance(node, dict):
@@ -69,13 +75,15 @@ def tree_unflatten(treedef: tuple, leaves: List[Any]) -> Any:
     return out
 
 
-def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """``fn`` over the leaves of ``tree`` (and, leaf by leaf, of each tree
-    in ``rest``, which must have the same structure)."""
-    leaves, td = tree_flatten(tree)
+    in ``rest``, which must have the same structure); ``is_leaf`` as in
+    :func:`tree_flatten`, applied to ``tree`` and every tree of ``rest``."""
+    leaves, td = tree_flatten(tree, is_leaf)
     others = []
     for other in rest:
-        o_leaves, o_td = tree_flatten(other)
+        o_leaves, o_td = tree_flatten(other, is_leaf)
         if o_td != td:
             raise ValueError("tree_map: trees of different structure")
         others.append(o_leaves)

@@ -10,15 +10,18 @@ shard is written to a temporary directory (removed at exit), as the JAX
 package's launcher writes it.  Every architecture of the registry trains:
 a stub-frontend one (qwen2-vl, seamless) takes random embeddings in place
 of its frontend's output (:func:`stub_frontend`), where the JAX package's
-launcher refuses it.  ``--mesh`` and ``--dry`` (the production
-mesh and the compile-only dry run) belong to the distribution slice, which
-is not ported yet.
+launcher refuses it.  ``--dry`` runs the meta-device dry run of the
+architecture's ``train_4k`` cell on the production mesh that ``--mesh``
+names (``launch/dryrun.py``; a record in ``build/dryrun/``) and exits 0 if
+it is ``ok``; ``--mesh`` alone changes nothing, as in the JAX package.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 100 --batch 8 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --smoke \\
       --device cpu --steps 3 --batch 2 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --mesh single \\
+      --dry   # per-device accounting of the production train step, no execution
 """
 
 from __future__ import annotations
@@ -47,9 +50,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", choices=["single", "multi"], default=None,
-                    help="production mesh (not ported yet)")
+                    help="production mesh of --dry: 16x16 (single) or 2x16x16 (multi)")
     ap.add_argument("--dry", action="store_true",
-                    help="lower+compile the production step (not ported yet)")
+                    help="meta-device dry run of the production train step, then exit")
     return ap.parse_args(argv)
 
 
@@ -120,10 +123,10 @@ def make_trainer(args: argparse.Namespace, shard: Path):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.dry or args.mesh:
-        print("--dry and --mesh belong to the distribution slice, not ported yet "
-              "(ROADMAP.md, Queue 1 item 8)", file=sys.stderr)
-        return 2
+    if args.dry:
+        from .dryrun import run_cell
+        rec = run_cell(args.arch, "train_4k", args.mesh == "multi", Path("build/dryrun"))
+        return 0 if rec["ok"] else 1
 
     from ..configs.registry import get_config, get_smoke_config
 

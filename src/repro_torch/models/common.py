@@ -6,7 +6,9 @@ device) instead of split ``jax.random`` keys; the two give different
 numbers from one seed, so the parity tests convert the JAX package's
 weights with :func:`repro_torch.interop.params_from_numpy` instead.  Trees
 are walked in JAX order (dict keys sorted), so each leaf draws from the
-generator at the same position in both layouts.
+generator at the same position in both layouts.  The spec-tree views
+(``logical_axes_tree``, ``shapes_tree``) keep JAX's tree too: their
+leaves are tuples, so walk them with ``is_leaf=is_tuple``.
 """
 
 from __future__ import annotations
@@ -85,3 +87,25 @@ def _stacked_init(init: Callable, n: int) -> Callable:
         return torch.stack([init(gen, shape[1:], dtype) for _ in range(n)])
 
     return f
+
+
+def is_tuple(v) -> bool:
+    """A leaf of a spec-tree view: a plain tuple (logical axes, a shape or a
+    partition spec); the parameter trees hold no plain tuple as a node."""
+    return type(v) is tuple
+
+
+def logical_axes_tree(spec_tree: PyTree) -> PyTree:
+    return tree_map(lambda s: tuple(s.logical_axes), spec_tree)
+
+
+def shapes_tree(spec_tree: PyTree) -> PyTree:
+    return tree_map(lambda s: tuple(s.shape), spec_tree)
+
+
+def count_params(params: PyTree) -> int:
+    return sum(math.prod(p.shape) for p in tree_flatten(params)[0])
+
+
+def tree_bytes(params: PyTree) -> int:
+    return sum(p.numel() * p.element_size() for p in tree_flatten(params)[0])

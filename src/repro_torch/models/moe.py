@@ -8,10 +8,11 @@ package leaves them to XLA outside any kernel), and results scatter-add
 back with the renormalised router weights.  Assignments past an expert's
 capacity are dropped (contribute zero).
 
-One device has no mesh, so ``shard_local`` takes the dense dispatch, as the
-reference does without a mesh; its ``shard_map`` form waits for the
-distribution slice (ROADMAP.md, Queue 1 item 8).  ``moe_sharding`` only
-names the parameters' logical axes here.
+``shard_local=True`` with a ``DeviceMesh`` active (``distributed/
+sharding.use_mesh``) runs the dispatch on each rank's local tokens over the
+mesh's process groups (:func:`_moe_forward_shard_local`, the reference's
+``shard_map`` form); without one it takes the dense dispatch, as the
+reference does without a mesh.
 
 Aux losses (returned; ``train_step`` adds them to the loss): load-balance
 (Switch §2.2), router z-loss (ST-MoE) and the dropped share.
@@ -47,10 +48,18 @@ def moe_forward(p: dict, x: torch.Tensor, top_k: int,
                 capacity_factor: float = 1.25, shard_local: bool = False,
                 moe_sharding: str = "tp") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [b, s, d] -> (y [b, s, d], aux {moe_lb_loss, moe_z_loss,
-    moe_drop_frac}).  ``shard_local`` and ``moe_sharding`` select the
-    reference's mesh-local dispatch, which needs a mesh; with one device
-    both take the dense dispatch."""
-    del shard_local, moe_sharding
+    moe_drop_frac}).  Tokens over capacity are dropped (contribute zero).
+
+    ``shard_local=True`` under an active ``DeviceMesh`` takes the
+    mesh-local dispatch (§Perf H1); then ``x`` is this rank's tokens and
+    ``p`` holds this rank's expert shards (``moe_sharding``: "tp" shards
+    d_ff over ``model``, "ep" the experts)."""
+    if shard_local:
+        from ..distributed.sharding import active_mesh, is_device_mesh
+
+        mesh = active_mesh()
+        if is_device_mesh(mesh):
+            return _moe_forward_shard_local(p, x, top_k, capacity_factor, moe_sharding, mesh)
     return _moe_forward_dense(p, x, top_k, capacity_factor)
 
 
@@ -71,57 +80,159 @@ def expert_ffn(p: dict, xg: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ecf,efd->ecd", h, p["w_down"])
 
 
+class _Dispatch:
+    """The sort/gather dispatch of tokens x2 [T, d] into an [E, C, d]
+    capacity block, and what combining the experts' outputs back needs."""
+
+    def __init__(self, router: torch.Tensor, x2: torch.Tensor, top_k: int,
+                 capacity_factor: float):
+        T, d = x2.shape
+        E = router.shape[1]
+        K = top_k
+        dev = x2.device
+        self.T, self.K, self.E = T, K, E
+        self.logits, self.probs, top_w, top_ids = route(router, x2, K)
+        cap = int(max(1, round(T * K / E * capacity_factor)))  # Python's round, as the reference
+        self.cap = cap
+
+        flat_e = top_ids.reshape(-1)                            # [T*K]
+        order = torch.sort(flat_e, stable=True).indices
+        sorted_e = flat_e[order]
+        # per-expert counts without bincount, which reads its input's max on
+        # the host
+        self.counts = torch.zeros(E, dtype=flat_e.dtype, device=dev).scatter_add_(
+            0, flat_e, torch.ones_like(flat_e))
+        starts = torch.cumsum(self.counts, 0) - self.counts     # exclusive
+        pos_in_e = torch.arange(T * K, device=dev) - starts[sorted_e]
+        self.keep = pos_in_e < cap
+        self.tok_idx = order // K
+        self.slot = sorted_e * cap + pos_in_e                   # [T*K] flat slot
+        self.w_sorted = top_w.reshape(-1)[order]
+
+        # token index of each slot (T: the zero row); dropped assignments all
+        # write one extra slot, cut off after (no host sync for a mask)
+        table = torch.full((E * cap + 1,), T, dtype=torch.long, device=dev)
+        table.scatter_(0, torch.where(self.keep, self.slot, E * cap), self.tok_idx)
+        x_pad = torch.cat([x2, x2.new_zeros((1, d))], dim=0)
+        self.xg = x_pad[table[:E * cap]].reshape(E, cap, d)     # [E, C, d]
+
+    def combine(self, eo_flat: torch.Tensor) -> torch.Tensor:
+        """Expert outputs [E*C, d] -> y [T, d]: assignment i (sorted order)
+        reads slot[i].  index_add_ into zeros: each token receives K = 2
+        terms (top-2), and a sum of two terms onto 0 is the same in either
+        order, so the result is bitwise reproducible even where CUDA's
+        index_add_ adds with atomics in no fixed order (for K > 2 it would
+        not be)."""
+        keep, T = self.keep, self.T
+        zero = torch.zeros((), dtype=eo_flat.dtype, device=eo_flat.device)
+        w = torch.where(keep, self.w_sorted.to(eo_flat.dtype), zero)
+        contrib = eo_flat[torch.where(keep, self.slot, 0)] * w[:, None]
+        return torch.zeros((T + 1, eo_flat.shape[1]), dtype=eo_flat.dtype,
+                           device=eo_flat.device).index_add_(
+            0, torch.where(keep, self.tok_idx, T), contrib)[:T]
+
+    def aux(self) -> Dict[str, torch.Tensor]:
+        """Load-balance loss, router z-loss and the dropped share."""
+        T, K, E = self.T, self.K, self.E
+        me = self.probs.mean(dim=0)                             # mean router prob
+        ce = self.counts.float() / (T * K)
+        return {"moe_lb_loss": E * torch.sum(me * ce),
+                "moe_z_loss": torch.mean(torch.logsumexp(self.logits, dim=-1) ** 2),
+                "moe_drop_frac": 1.0 - self.keep.sum().float() / (T * K)}
+
+
 def _moe_forward_dense(p: dict, x: torch.Tensor, top_k: int,
                        capacity_factor: float = 1.25
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     b, s, d = x.shape
-    E = p["router"].shape[1]
-    T = b * s
-    K = top_k
-    dev = x.device
-    x2 = x.reshape(T, d)
-    logits, probs, top_w, top_ids = route(p["router"], x2, K)
-    cap = int(max(1, round(T * K / E * capacity_factor)))   # Python's round, as the reference
+    disp = _Dispatch(p["router"], x.reshape(b * s, d), top_k, capacity_factor)
+    eo_flat = expert_ffn(p, disp.xg).reshape(-1, d)
+    return disp.combine(eo_flat).reshape(b, s, d).to(x.dtype), disp.aux()
 
-    flat_e = top_ids.reshape(-1)                            # [T*K]
-    order = torch.sort(flat_e, stable=True).indices
-    sorted_e = flat_e[order]
-    # per-expert counts without bincount, which reads its input's max on
-    # the host
-    counts = torch.zeros(E, dtype=flat_e.dtype, device=dev).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    starts = torch.cumsum(counts, 0) - counts               # exclusive
-    pos_in_e = torch.arange(T * K, device=dev) - starts[sorted_e]
-    keep = pos_in_e < cap
-    tok_idx = order // K
-    slot = sorted_e * cap + pos_in_e                        # [T*K] flat slot
 
-    # token index of each slot (T: the zero row); dropped assignments all
-    # write one extra slot, cut off after (no host sync for a mask)
-    table = torch.full((E * cap + 1,), T, dtype=torch.long, device=dev)
-    table.scatter_(0, torch.where(keep, slot, E * cap), tok_idx)
-    table = table[:E * cap]
+def _mean_over(v: torch.Tensor, groups) -> torch.Tensor:
+    """``pmean`` over the groups' product (autograd-aware: gradients flow
+    back through the sums)."""
+    from torch.distributed.nn.functional import all_reduce
 
-    x_pad = torch.cat([x2, x2.new_zeros((1, d))], dim=0)
-    xg = x_pad[table].reshape(E, cap, d)                    # [E, C, d]
-    eo_flat = expert_ffn(p, xg).reshape(E * cap, d)
+    n = 1
+    for g in groups:
+        v = all_reduce(v, group=g)
+        n *= torch.distributed.get_world_size(g)
+    return v / n
 
-    # combine: assignment i (sorted order) reads expert-output slot[i].
-    # index_add_ into zeros: each token receives K = 2 terms (top-2), and
-    # a sum of two terms onto 0 is the same in either order, so the result
-    # is bitwise reproducible even where CUDA's index_add_ adds with
-    # atomics in no fixed order (for K > 2 it would not be).
-    w_sorted = top_w.reshape(-1)[order].to(eo_flat.dtype)
-    zero = torch.zeros((), dtype=eo_flat.dtype, device=dev)
-    contrib = eo_flat[torch.where(keep, slot, 0)] * torch.where(keep, w_sorted, zero)[:, None]
-    y = torch.zeros((T + 1, d), dtype=eo_flat.dtype, device=dev).index_add_(
-        0, torch.where(keep, tok_idx, T), contrib)[:T]
 
-    # aux losses
-    me = probs.mean(dim=0)                                  # mean router prob
-    ce = counts.float() / (T * K)
-    lb_loss = E * torch.sum(me * ce)
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    dropped = 1.0 - keep.sum().float() / (T * K)
-    aux = {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss, "moe_drop_frac": dropped}
+def _moe_forward_shard_local(p: dict, x: torch.Tensor, top_k: int,
+                             capacity_factor: float, moe_sharding: str,
+                             mesh) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Local dispatch per data shard over a ``DeviceMesh`` (§Perf H1).
+
+    ``x`` is this rank's tokens (its shard over the data axes, the same on
+    every ``model`` peer); the router is whole.  Capacity is per shard, so
+    at a capacity factor that drops tokens this is not the dense dispatch
+    (it is the reference's ``shard_map`` form).
+
+    TP-MoE: ``w_gate`` / ``w_up`` / ``w_down`` are this rank's d_ff slice;
+    each rank runs the complete dispatch on its tokens against it, and the
+    only collective is the sum of the partial outputs over ``model``.
+
+    EP-MoE: the weights are this rank's ``E / n`` experts.  Each ``model``
+    peer dispatches a distinct ``1/n`` of the tokens (when ``n`` divides
+    them), an all-to-all exchanges expert slots for token shards, each rank
+    runs its own experts, a reverse all-to-all returns the outputs, and an
+    all-gather reassembles the token slices.
+
+    The aux losses are averaged over the data groups (and over ``model``
+    where the tokens were split), as the reference's ``pmean``.  The
+    collectives are ``torch.distributed.nn.functional``'s, so gradients
+    flow through them.
+    """
+    from torch.distributed.nn.functional import all_reduce, all_to_all_single
+
+    data_groups = [mesh.get_group(a) for a in ("pod", "data") if a in mesh.mesh_dim_names]
+    model = mesh.get_group("model")
+    b, s, d = x.shape
+
+    if moe_sharding == "tp":
+        y, aux = _moe_forward_dense(p, x, top_k, capacity_factor)
+        # w_down rows are a d_ff shard -> partial outputs; finish the TP sum
+        y = all_reduce(y, group=model)
+        return y, {k: _mean_over(v, data_groups) for k, v in aux.items()}
+
+    n = mesh.size(mesh.mesh_dim_names.index("model"))
+    e_local = p["w_gate"].shape[0]
+    x_full = x.reshape(b * s, d)
+    # x is replicated over "model": each model peer must dispatch a
+    # DISTINCT 1/n token slice, else every peer ships identical slots and
+    # expert compute inflates n×
+    split = x_full.shape[0] % n == 0 and x_full.shape[0] >= n
+    if split:
+        t = x_full.shape[0] // n
+        mi = mesh.get_local_rank("model")
+        x2 = x_full[mi * t:(mi + 1) * t]
+    else:
+        x2 = x_full
+    disp = _Dispatch(p["router"], x2, top_k, capacity_factor)
+    cap = disp.cap
+
+    # exchange: this rank sends its slots for expert-block j to peer j;
+    # afterwards dim 0 indexes the SOURCE peer
+    xg = disp.xg.reshape(n, e_local, cap, d).contiguous()
+    xg = all_to_all_single(torch.empty_like(xg), xg, group=model)
+    xg = xg.transpose(0, 1).reshape(e_local, n * cap, d)
+    eo = expert_ffn(p, xg)                                   # [e_local, n*cap, d]
+    # reverse exchange: send each source peer its slots back
+    eo = eo.reshape(e_local, n, cap, d).transpose(0, 1).contiguous()
+    eo = all_to_all_single(torch.empty_like(eo), eo, group=model)
+    y = disp.combine(eo.reshape(-1, d))
+    if split:
+        # reassemble the full token range from the model-axis slices: an
+        # all-gather as an all-to-all of n copies (its backward sums each
+        # slice's cotangents over the peers).  torch's autograd all_gather
+        # is not used: on gloo its backward scatters from group-local ranks
+        # as if they were global ones, which fails on a subgroup.
+        y = all_to_all_single(torch.empty((n * y.shape[0], d), dtype=y.dtype, device=y.device),
+                              y.repeat(n, 1), group=model)
+    red = data_groups + [model] if split else data_groups
+    aux = {k: _mean_over(v, red) for k, v in disp.aux().items()}
     return y.reshape(b, s, d).to(x.dtype), aux

@@ -46,7 +46,8 @@ from .. import resolve_device, torch_dtype
 from ..configs.base import ModelConfig, Segment
 from ..interop import tree_map
 from .blocks import BlockCtx, block_apply, block_cache_init, block_param_specs
-from .common import ParamSpec, init_param_tree, normal_init, ones_init, stack_specs
+from .common import (ParamSpec, init_param_tree, logical_axes_tree, normal_init, ones_init,
+                     stack_specs)
 from .layers import rms_norm
 
 NEG_INF = -1.0e9
@@ -111,6 +112,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
     gen = torch.Generator().manual_seed(seed)
     return init_param_tree(param_specs(cfg), gen,
                            torch_dtype(dtype or cfg.param_dtype), dev)
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict:
+    return logical_axes_tree(param_specs(cfg))
 
 
 # -------------------------------------------------------------------- embed

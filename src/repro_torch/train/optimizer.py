@@ -1,10 +1,12 @@
 """AdamW, functional (port of ``repro/train/optimizer.py``).
 
 State layout mirrors the parameter tree: ``{m, v}`` in fp32 plus a 0-d
-int32 step counter.  The JAX package's ZeRO-1 sharding of ``(m, v)`` and
-the int8 gradient compression belong to the distribution slice; on one
-device the state is plain tensors.  Every function returns new tensors
-and mutates none.
+int32 step counter.  On one device the state is plain tensors; the
+data-parallel train cell (``launch/specs.build_cell``) keeps only its
+ZeRO-1 shard of ``(m, v)`` on each rank and updates it with
+:func:`adamw_elementwise`, and the int8 gradient compression is
+``distributed/collectives.py``.  Every function returns new tensors and
+mutates none.
 
 Scalars enter the arithmetic as 0-d fp32 tensors on the data's device,
 never as Python numbers divided into a CUDA tensor: PyTorch's CUDA

@@ -255,9 +255,9 @@ class PagedOptimizerState:
     def snapshot_tree(self) -> dict:
         """Blocking consistent snapshot as separate {m, v} trees.
 
-        The split trees structurally match the parameter tree (the JAX
-        package's ``distributed/elastic.reshard_tree`` places them onto a
-        new mesh with the parameters' own logical-axis rules).
+        The split trees structurally match the parameter tree
+        (``distributed/elastic.reshard_tree`` places them onto a new mesh
+        with the parameters' own logical-axis rules).
         """
         mv_leaves = [self.mv.snapshot_leaf(i)
                      for i in range(self.mv.num_leaves)]

@@ -2,8 +2,10 @@
 
 Gradients come from ``torch.autograd.grad`` over the parameter leaves,
 which are detached first, so no graph reaches back into the caller's
-tensors and none outlives the step.  The JAX package's optional int8
-gradient compression belongs to the distribution slice.
+tensors and none outlives the step.  The data-parallel step with ZeRO-1
+moments over a ``DeviceMesh`` (``launch/specs.build_cell``) takes its local
+gradients from :func:`step_grads` and reduces them itself; the int8
+compressed reduction is ``distributed/collectives.py``.
 """
 
 from __future__ import annotations
@@ -61,10 +63,10 @@ def value_and_grad(cfg: ModelConfig, tcfg: TrainConfig, params: dict, batch: dic
     return loss.detach(), metrics, tree_unflatten(treedef, list(grads))
 
 
-def train_step(cfg: ModelConfig, tcfg: TrainConfig, params: dict,
-               opt_state: AdamWState, batch: dict
-               ) -> Tuple[dict, AdamWState, dict]:
-    """One optimizer step (optionally over sequential microbatches)."""
+def step_grads(cfg: ModelConfig, tcfg: TrainConfig, params: dict, batch: dict
+               ) -> Tuple[dict, dict]:
+    """(metrics, grads) of one step's batch, over sequential microbatches
+    when ``tcfg.microbatches`` > 1 (their mean loss and gradient)."""
     if tcfg.microbatches <= 1:
         _, metrics, grads = value_and_grad(cfg, tcfg, params, batch)
     else:
@@ -79,6 +81,14 @@ def train_step(cfg: ModelConfig, tcfg: TrainConfig, params: dict,
             grads = tree_map(lambda a, b: a + b.float() / mb, grads, g)
             loss = loss + l / mb
         metrics["loss"] = loss
+    return metrics, grads
+
+
+def train_step(cfg: ModelConfig, tcfg: TrainConfig, params: dict,
+               opt_state: AdamWState, batch: dict
+               ) -> Tuple[dict, AdamWState, dict]:
+    """One optimizer step (optionally over sequential microbatches)."""
+    metrics, grads = step_grads(cfg, tcfg, params, batch)
     params, opt_state, opt_metrics = apply_update(tcfg.optimizer, params, grads, opt_state)
     metrics.update(opt_metrics)
     return params, opt_state, metrics

@@ -943,3 +943,107 @@ def test_trainer_step_remat_full_is_bitwise_remat_none(cuda):
     assert states[0][0] == states[1][0]
     for a, b in zip(states[0][1], states[1][1]):
         assert a == b if isinstance(a, int) else torch.equal(a, b)
+
+
+# ---------------------------------------------------- distribution (NCCL)
+
+
+@pytest.fixture(scope="module")
+def nccl(tmp_path_factory):
+    """A 1-rank NCCL group (file store) and a (1, 1) ("data", "model")
+    DeviceMesh on the card; NCCL refuses two ranks on one card, so the
+    multi-rank semantics are the gloo tests' (test_torch_distributed_ranks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (NCCL)")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import init_process_group
+
+    torch.cuda.set_device(0)
+    init_process_group("cuda", f"file://{tmp_path_factory.mktemp('nccl') / 'store'}")
+    try:
+        assert dist.get_backend() == "nccl"
+        yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_train_cell_is_bitwise_train_step(cuda, nccl):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.interop import tree_flatten, tree_map
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import TrainConfig, train_step
+
+    cfg = get_smoke_config("smollm-135m").replace(compute_dtype="bfloat16")
+    tcfg = TrainConfig(optimizer=AdamWConfig(warmup_steps=1), loss_chunk=16)
+    with use_mesh(nccl, rules_for("train", cfg)):
+        cell = SP.build_cell(cfg, ShapeConfig("t", 32, 2, "train"), nccl, tcfg)
+    params = init_params(cfg, seed=0, device=cuda)
+    ref_p, ref_s = params, init_state(params)
+    p, s = tree_map(torch.clone, params), SP.local_tree(init_state(params), cell.in_specs[1], nccl)
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)).to(cuda)
+        batch = {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
+        ref_p, ref_s, rm = train_step(cfg, tcfg, ref_p, ref_s, batch)
+        p, s, m = cell.fn(p, s, SP.local_tree(batch, cell.in_specs[2], nccl))
+        assert torch.equal(m["loss"], rm["loss"])
+        for a, b in zip(tree_flatten((p, s.m, s.v))[0], tree_flatten((ref_p, ref_s.m, ref_s.v))[0]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["tp", "ep"])
+def test_nccl_moe_shard_local_matches_dense(cuda, nccl, kind):
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models.common import init_param_tree
+    from repro_torch.models.moe import _moe_forward_dense, moe_forward, moe_param_specs
+
+    gen = torch.Generator().manual_seed(0)
+    p = init_param_tree(moe_param_specs(64, 128, 8, kind), gen, torch.float32, cuda)
+    x = torch.randn(4, 32, 64, generator=gen).to(cuda)
+    y_ref, aux_ref = _moe_forward_dense(p, x, 2, 1.0)
+    with use_mesh(nccl):
+        y, aux = moe_forward(p, x, 2, 1.0, shard_local=True, moe_sharding=kind)
+    torch.testing.assert_close(y, y_ref, **TOL["float32"])
+    for k in aux_ref:
+        torch.testing.assert_close(aux[k], aux_ref[k], **TOL["float32"])
+
+
+def test_nccl_elastic_restore_onto_cuda_dtensors(cuda, nccl):
+    from repro_torch.ckpt.checkpoint import save_tree_to_store
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import HostArrayStore
+    from repro_torch.distributed.elastic import restore_train_state_elastic
+    from repro_torch.interop import to_numpy, tree_flatten, tree_map
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_smoke_config("smollm-135m")
+    params = tree_map(to_numpy, init_params(cfg, seed=0, device="cpu"))
+    state = {"params": params, "opt": {"m": params, "v": params}, "step": 3}
+    nbytes = sum(np.asarray(a).nbytes for a in tree_flatten(state)[0])
+    store = HostArrayStore(np.zeros(nbytes + 4096, np.uint8))
+    manifest = save_tree_to_store(store, state)
+    store.reset_stats()
+    like = tree_map(lambda a: np.zeros_like(np.asarray(a)), state)
+    restored, report = restore_train_state_elastic(cfg, nccl, store, manifest, like)
+    assert store.num_reads == 1 and report.devices == 1
+    for tree in (restored["params"], restored["opt"]["m"], restored["opt"]["v"]):
+        for a, b in zip(tree_flatten(tree)[0], tree_flatten(params)[0]):
+            assert a.to_local().device.type == "cuda"
+            np.testing.assert_array_equal(to_numpy(a.to_local()), b)
+
+
+def test_nccl_compressed_all_reduce_is_the_dequantized_value(cuda, nccl):
+    from repro_torch.distributed.collectives import compressed_all_reduce, quantize_int8
+
+    x = torch.randn(300, 70, generator=torch.Generator().manual_seed(1)).to(cuda)
+    err = torch.zeros_like(x)
+    mean, new_err = compressed_all_reduce(x, nccl.get_group("data"), err)
+    q, scale, want_err = quantize_int8(x, err)
+    assert torch.equal(mean, q.float() * scale) and torch.equal(new_err, want_err)

@@ -68,7 +68,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "repro_torch.models.ssm", "repro_torch.configs.hymba_1p5b",
                 "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.phi3p5_moe",
                 "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1p3b",
-                "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.seamless_m4t_medium"):
+                "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.seamless_m4t_medium",
+                "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
+                "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
+                "repro_torch.launch.specs", "repro_torch.launch.dryrun"):
         assert mod in res["imported"], f"{mod} was not walked"
 
 

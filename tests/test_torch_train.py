@@ -414,11 +414,17 @@ def test_launcher_trains_three_finite_steps_on_the_cpu():
     assert len(losses) == 3 and all(math.isfinite(x) for x in losses), out.stdout
 
 
-def test_launcher_refuses_the_distribution_options(capsys):
+def test_launcher_refuses_the_distribution_options(tmp_path, monkeypatch):
+    """The distribution options are refused no more: ``--dry`` runs the
+    meta-device dry run of ``train_4k`` on the production mesh ``--mesh``
+    names and writes its record under ``build/dryrun/``."""
     from repro_torch.launch.train import main
-    assert main(["--arch", "smollm-135m", "--dry"]) == 2
-    assert main(["--arch", "smollm-135m", "--mesh", "single"]) == 2
-    assert "Queue 1 item 8" in capsys.readouterr().err
+    monkeypatch.chdir(tmp_path)
+    assert main(["--arch", "llama3-8b", "--dry", "--mesh", "single"]) == 0
+    rec = json.loads((tmp_path / "build/dryrun/llama3-8b__train_4k__pod16x16.json").read_text())
+    assert rec["ok"] and rec["devices"] == 256 and rec["kind"] == "train"
+    assert main(["--arch", "smollm-135m", "--dry", "--mesh", "multi"]) == 0
+    assert (tmp_path / "build/dryrun/smollm-135m__train_4k__pod2x16x16.json").is_file()
 
 
 def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
