@@ -234,6 +234,28 @@ Phases, each printing one JSON line:
             read, local shards bitwise equal; (f) qwen2-1.5b's prefill cell
             at 4 x 1024, logits bitwise ``T.prefill``'s, its 28
             flash_attention launches all hopper.
+12. tensor_parallel  tensor parallelism over ``model`` (``TP_*``): (a)
+            flash_attention on one rank's heads (``head_offset``), bf16 at
+            full width: llama3-8b's 32 heads over 4 ranks (q [1,8,4096,128],
+            offsets 0/8/16/24) and qwen2-1.5b's 16 padded heads over 2
+            (offset 8: 4 real heads, 4 padded); every shard on both variants
+            bitwise those heads of the launch over every head and held to
+            its plain version as phase 2 holds it; the offset-8 shard timed
+            as phase 2 times, beside the full launch.  (b) The TP code path
+            under NCCL at world size 1 (``make_host_mesh(model=1)``):
+            full-width qwen2-1.5b's prefill cell at 4 x 1024 (phase 11's
+            weights and tokens; counts zeroed just before and read after
+            the decode) and 16 steps of its decode cell; the logits bitwise
+            phase 11 (f)'s, the greedy tokens (and logits) those of
+            ``T.prefill`` + ``T.decode_step``, 28 launches all hopper at
+            head offset 0.  (c) The same cells over 2 gloo ranks (spawned
+            processes, a file store under build/) sharing the one card, a
+            (1, 2) mesh: every rank on its shards (heads, KV heads, ffn and
+            vocab split; the decode cache split by sequence), fed (b)'s
+            tokens; logits within 3e-2 (row norm) of (b)'s, each greedy
+            token within 3e-2 of (b)'s top logit, each rank's 28 launches
+            hopper at its own head offset (0, 8).  (c)'s times are gloo's,
+            which stages every collective through the host.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
@@ -244,7 +266,7 @@ phase 9's and phase 10's launches by model, and for paged_attention and
 flash_attention its phase-2 cases at phase 9's and phase 10's shapes with the
 launches of the model each stands for; for flash_attention also phase 10's
 launches by variant and by mask and the prefills that took the plain
-route), the card's
+route, and phase 12 (a)'s cases with (c)'s launches), the card's
 name and power limit from nvidia-smi, and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises before that line (non-zero exit).  Without a
 CUDA card, or without the rest of the repository beside it, it exits
@@ -405,6 +427,22 @@ DIST_DRY_RECORDS = 66
 DIST_MOE_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
 DIST_MOE_TOKENS = (4, 512)
 DIST_PREFILL = (4, 1024)
+# phase 12: tensor parallelism over "model".  (a) flash_attention on one
+# rank's heads at full width, bf16: (B, H, real heads, KVH, S, D, ranks, the
+# head offset timed) — llama3-8b's 32 heads over 4 ranks (whole KV groups),
+# qwen2-1.5b's 16 padded heads over 2 (rank 1: heads 8-11 real, 12-15
+# padded).  (b) / (c): qwen2-1.5b's prefill cell at 4 x 1024, then 16
+# decode-cell steps; (c) over 2 gloo ranks on the one card, its logits held
+# to (b)'s per row (bf16 compute: the ranks' partial products summed in fp32
+# round otherwise than one product)
+TP_FLASH_CASES = {
+    "llama3_4096_tp4": (1, 32, 32, 8, 4096, 128, 4, 8),
+    "qwen2_4096_tp2": (1, 16, 12, 2, 4096, 128, 2, 8),
+}
+TP_PREFILL = DIST_PREFILL
+TP_DECODE_STEPS = 16
+TP_RANKS = 2
+TP_LOGITS_ROW_TOL = 3e-2
 # phase 10: the rest of the zoo at full width, nothing cut (bf16, random
 # weights from seed 0 made on the card).  xlstm-1.3b through ServeEngine:
 # its prompts x ZOO_NEW_TOKENS, batch 4; the fp32 check at 8 of 48 blocks
@@ -2829,13 +2867,13 @@ def dist_prefill(torch, K, FK, mesh):
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "batch": DIST_PREFILL[0], "prompt_tokens": DIST_PREFILL[1],
             "cell_ms": cell_ms, "logits_bitwise_equal": True, "launches": launches,
-            "flash_attention_variants": variants}
+            "flash_attention_variants": variants}, logits
 
 
 def phase_distributed(torch, K, FK, handoff):
     """Phase 11: the distribution slice under NCCL at world size 1 (a file
     store under build/), on a (1, 1) ``(data, model)`` DeviceMesh.  Returns
-    the prefill cell's kernel launches."""
+    the prefill cell's kernel launches and its logits (for phase 12)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -2861,12 +2899,331 @@ def phase_distributed(torch, K, FK, handoff):
         out["moe"] = dist_moe(torch, mesh, flush)
         del flush
         out["elastic"] = dist_elastic(torch, mesh, handoff["state"])
-        out["prefill"] = dist_prefill(torch, K, FK, mesh)
+        out["prefill"], logits = dist_prefill(torch, K, FK, mesh)
         out["seconds"] = time.perf_counter() - t_phase
         emit({"phase": "distributed", **out})
     finally:
         dist.destroy_process_group()
-    return out["prefill"]["launches"]
+    return out["prefill"]["launches"], logits
+
+
+# ------------------------------------------------------------------ phase 12
+
+
+def tp_flash_cases(torch, flush):
+    """(a) ``flash_attention`` on a tensor-parallel rank's heads
+    (``head_offset``) at full width, bf16: each rank's shard of
+    ``TP_FLASH_CASES`` on both variants bitwise those heads of the launch
+    over every head and held to its plain version (TOL, ROW_REL_TOL); the
+    ``timed`` shard timed as phase 2 times, beside the full launch."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention.kernel import (VARIANTS, choose_variant,
+                                                            flash_attention)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rng = np.random.default_rng(12)
+    rows = []
+    for case, (B, H, NH, KVH, S, D, ranks, timed) in TP_FLASH_CASES.items():
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                   .to("cuda", torch.bfloat16).transpose(1, 2)
+                   for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+        per, rep = H // ranks, NH // KVH
+        kw = dict(causal=True, num_heads=NH)
+        full = {var: flash_attention(q, k, v, variant=var, **kw) for var in VARIANTS}
+        checked = {}
+        for r in range(ranks):
+            h0 = r * per
+            qs = q[:, h0:h0 + per]
+            ref = flash_attention_ref(qs, k, v, head_offset=h0, **kw)
+            real = min(max(NH - h0, 0), per)
+            for var in VARIANTS:
+                out = flash_attention(qs, k, v, variant=var, head_offset=h0, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(out, full[var][:, h0:h0 + per]),
+                      f"tensor_parallel {case} {var} offset {h0}: not the full launch's heads")
+                err = (out.float() - ref.float()).abs()
+                tol = TOL["bfloat16"]
+                check(bool((err <= tol["atol"] + tol["rtol"] * ref.float().abs()).all()),
+                      f"tensor_parallel {case} {var} offset {h0}: max |err| {err.max().item()}")
+                row_err = (max_row_rel_err(out[:, :real], ref[:, :real], "flash_attention")
+                           if real else 0.0)
+                check(row_err <= ROW_REL_TOL["bfloat16"],
+                      f"tensor_parallel {case} {var} offset {h0}: row error {row_err}")
+                check(bool((out[:, real:] == 0).all()), "tensor_parallel: padded heads not zero")
+                checked[(h0, var)] = (err.max().item(), row_err)
+                del out, err
+            del ref
+        qs = q[:, timed:timed + per]
+        real = min(max(NH - timed, 0), per)
+        variant = choose_variant(qs, k, v)
+        check(variant == "hopper", f"tensor_parallel {case}: the shard takes {variant}")
+        lo, hi = timed, timed + real                      # global real heads of the shard
+        g0, g1 = lo // rep, (hi - 1) // rep + 1           # the KV heads they read
+        library = sdpa_flash_yardstick(torch, qs, k[:, g0:g1], v[:, g0:g1], real, True, None)
+        times = measure(torch, flush,
+                        lambda: flash_attention(qs, k, v, head_offset=timed, **kw),
+                        lambda: flash_attention_ref(qs, k, v, head_offset=timed, **kw), library,
+                        {"generic_ms": lambda: flash_attention(qs, k, v, variant="generic",
+                                                               head_offset=timed, **kw),
+                         "full_launch_ms": lambda: flash_attention(q, k, v, **kw)})
+        pairs = visible_pairs(B, S, S, True, None)
+        nbytes = (B * real * S * D + 2 * B * (g1 - g0) * S * D + B * per * S * D) * 2
+        bnd, by = bound_ms(nbytes, 4.0 * D * real * pairs, "bfloat16")
+        err_max, row_err = checked[(timed, "hopper")]
+        rows.append(dict(case=case, dtype="bfloat16", q=[B, per, S, D], num_heads=NH, kvh=KVH,
+                         ranks=ranks, head_offsets=[r * per for r in range(ranks)],
+                         timed_offset=timed, real_heads=real, variant=variant,
+                         bitwise_full_launch=True,
+                         full_launch_share_ms=times["full_launch_ms"] * real / NH,
+                         variant_errors={f"{h0}/{var}": {"max_abs_err": e, "max_row_rel_err": r}
+                                         for (h0, var), (e, r) in checked.items()},
+                         max_abs_err=err_max, max_row_rel_err=row_err, **times,
+                         bound_ms=bnd, bound_by=by))
+        del q, k, v, full
+        torch.cuda.empty_cache()
+    return rows
+
+
+def whole_cache(torch, cache, specs, mesh):
+    """Each cache leaf gathered over ``model`` where its (batch-local)
+    spec splits it there: the prefill cache's KV heads, ready to be split
+    again by the decode cell's specs."""
+    import torch.distributed as dist
+
+    from repro_torch.interop import tree_map
+    from repro_torch.models.common import is_tuple
+
+    n = mesh.size(mesh.mesh_dim_names.index("model"))
+
+    def one(t, spec):
+        for d, e in enumerate(spec):
+            if d != 1 and e == "model" and n > 1:
+                parts = [torch.empty_like(t) for _ in range(n)]
+                dist.all_gather(parts, t.contiguous(), group=mesh.get_group("model"))
+                t = torch.cat(parts, dim=d)
+        return t
+
+    return tree_map(one, cache, specs, is_leaf=is_tuple)
+
+
+def tp_cells(torch, K, FK, mesh, forced=None):
+    """qwen2-1.5b's prefill cell at TP_PREFILL then TP_DECODE_STEPS steps of
+    its decode cell on ``mesh``, every rank on its own shards (weights from
+    seed 0 made on the card, fp32 parameters, bf16 compute, as phase 11).
+    The decode feeds ``forced`` tokens where given, else its own greedy
+    ones.  Counts zeroed just before the timed prefill (the second) and
+    read after the decode; ``flash_attention``'s calls counted by head
+    offset.  Returns the report and the logits (prefill, then each step)."""
+    import numpy as np
+
+    import repro_torch.models.blocks as blocks
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+
+    cfg = get_config("qwen2-1.5b")
+    b, prompt = TP_PREFILL
+    seq = prompt + TP_DECODE_STEPS
+    cells = {}
+    for kind in ("prefill", "decode"):
+        with use_mesh(mesh, rules_for(kind, cfg)):
+            cells[kind] = SP.build_cell(cfg, ShapeConfig(kind, seq, b, kind), mesh)
+    full = device_params(torch, cfg, torch.float32)
+    params = SP.local_tree(full, cells["prefill"].in_specs[0], mesh)
+    del full
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, TP_PREFILL, dtype=np.int64).astype(np.int32)).to("cuda")
+    batch = SP.local_tree({"tokens": tokens}, cells["prefill"].in_specs[1], mesh)
+    offsets = {}
+
+    def by_offset(fn):
+        def inner(*args, head_offset=0, **kw):
+            offsets[head_offset] = offsets.get(head_offset, 0) + 1
+            return fn(*args, head_offset=head_offset, **kw)
+        return inner
+
+    cells["prefill"].fn(params, batch)                            # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    FK.reset_variant_counts()
+    with Patched(blocks, "flash_attention", by_offset):
+        t0 = time.perf_counter()
+        logits, cache = cells["prefill"].fn(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    out_logits = [logits]
+    cache = SP.local_tree(whole_cache(torch, cache, cells["prefill"].out_specs[1], mesh),
+                          cells["decode"].in_specs[1], mesh)
+    greedy, step_ms = [], []
+    nxt = logits.argmax(-1).to(torch.int32)
+    for step in range(TP_DECODE_STEPS):
+        fed = nxt if forced is None else forced[step].to("cuda")
+        cur = torch.full_like(fed, prompt + step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = cells["decode"].fn(params, cache, fed, cur)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out_logits.append(logits)
+        greedy.append(fed)
+        nxt = logits.argmax(-1).to(torch.int32)
+    report = {"arch": cfg.name, "batch": b, "prompt_tokens": prompt,
+              "decode_steps": TP_DECODE_STEPS, "prefill_cell_ms": prefill_ms,
+              "decode_cell_step_ms": step_ms, "launches": dict(K.launch_counts),
+              "flash_attention_variants": dict(FK.variant_counts),
+              "flash_attention_calls_by_head_offset": offsets,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del params, cache
+    torch.cuda.empty_cache()
+    return report, out_logits, torch.stack(greedy)
+
+
+def tp_rank(rank, world, store, out_dir, forced_path):
+    """(c) one of ``world`` gloo ranks sharing the one card: ``tp_cells`` on
+    a (1, world) ``(data, model)`` mesh, teacher-forced with (b)'s tokens;
+    rank 0 writes the logits, each rank its report."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels as K
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                            timeout=timedelta(seconds=300))
+    try:
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        forced = torch.from_numpy(np.load(forced_path))
+        report, logits, _ = tp_cells(torch, K, FK, mesh, forced)
+        report["rank"], report["coordinate"] = rank, list(mesh.get_coordinate())
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(report))
+        if rank == 0:
+            np.save(Path(out_dir) / "logits.npy",
+                    torch.stack([lg.float() for lg in logits]).cpu().numpy())
+    finally:
+        dist.destroy_process_group()
+
+
+def logits_row_err(torch, got, want) -> float:
+    """Largest ||got - want|| / ||want|| over the rows of ``want``, the
+    padded vocabulary (NEG_INF in both) left out."""
+    live = want[0] > -1e8
+    g, w = got[..., live].float(), want[..., live].float()
+    return ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+
+
+def phase_tensor_parallel(torch, K, FK, prefill_logits):
+    """Phase 12: tensor parallelism over ``model``.  (a) ``head_offset`` at
+    full width; (b) the TP code path under NCCL at world size 1 (a (1, 1)
+    mesh): qwen2-1.5b's prefill cell logits bitwise phase 11 (f)'s and its
+    decode cell bitwise ``T.decode_step``, greedy tokens equal; (c) the same
+    cells over TP_RANKS gloo ranks on the one card (a (1, 2) mesh: heads,
+    KV heads, ffn and vocab split, the decode cache split by sequence),
+    within TP_LOGITS_ROW_TOL of (b) and each greedy token within TOL of
+    (b)'s top logit; every rank's flash_attention launches hopper, at its
+    own head offset.  (c)'s times are gloo's: each collective stages
+    through the host, nothing crosses NVLink.  Returns (b)'s launches."""
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    import repro_torch.models.transformer as T
+    from repro_torch import torch_dtype
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+
+    t_phase = time.perf_counter()
+    out = {}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out["head_offset"] = tp_flash_cases(torch, flush)
+    del flush
+
+    # (b) world size 1 under NCCL
+    work = ROOT / "build" / "dist" / "tp"
+    work.mkdir(parents=True, exist_ok=True)
+    store = work / "nccl_store"
+    store.unlink(missing_ok=True)
+    init_process_group("cuda", f"file://{store}", world_size=1, rank=0)
+    try:
+        one, logits1, greedy = tp_cells(torch, K, FK, make_host_mesh("cuda", model=1))
+    finally:
+        dist.destroy_process_group()
+    check(torch.equal(logits1[0], prefill_logits),
+          "tensor_parallel (b): prefill logits not bitwise phase 11's")
+    cfg = get_config("qwen2-1.5b")
+    n = one["launches"]["flash_attention"]
+    check(n == cfg.num_layers and one["flash_attention_variants"] == {"hopper": n, "generic": 0}
+          and one["flash_attention_calls_by_head_offset"] == {0: n},
+          f"tensor_parallel (b): flash_attention {one['flash_attention_variants']}, "
+          f"{one['flash_attention_calls_by_head_offset']}")
+    params = device_params(torch, cfg, torch.float32)
+    b, prompt = TP_PREFILL
+    cache = T.init_cache(cfg, b, prompt + TP_DECODE_STEPS, torch_dtype(cfg.compute_dtype),
+                         device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, TP_PREFILL, dtype=np.int64).astype(np.int32)).to("cuda")
+    hidden, cache = T.prefill(cfg, params, {"tokens": tokens}, cache)
+    nxt, bitwise, ref_ms = T.lm_logits(cfg, params, hidden).argmax(-1).to(torch.int32), True, []
+    for step in range(TP_DECODE_STEPS):
+        check(torch.equal(nxt, greedy[step]), f"tensor_parallel (b): greedy token {step} differs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = T.decode_step(cfg, params, cache, nxt, torch.full_like(nxt, prompt + step))
+        torch.cuda.synchronize()
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+        bitwise &= torch.equal(lg, logits1[step + 1])
+        nxt = lg.argmax(-1).to(torch.int32)
+    check(bitwise, "tensor_parallel (b): decode-cell logits not bitwise T.decode_step's")
+    one.update(logits_bitwise_phase11=True, greedy_tokens_equal=True,
+               decode_logits_bitwise_decode_step=True, decode_step_ms=ref_ms)
+    out["world_size_1"] = one
+    del params, cache, hidden
+    torch.cuda.empty_cache()
+
+    # (c) TP_RANKS gloo ranks on the one card
+    store = work / "gloo_store"
+    store.unlink(missing_ok=True)
+    np.save(work / "forced.npy", greedy.cpu().numpy())
+    t0 = time.perf_counter()
+    mp.start_processes(tp_rank, args=(TP_RANKS, str(store), str(work), str(work / "forced.npy")),
+                       nprocs=TP_RANKS, start_method="spawn", join=True)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+    logits_c = torch.from_numpy(np.load(work / "logits.npy")).to("cuda")
+    errs = [logits_row_err(torch, logits_c[i], logits1[i]) for i in range(len(logits1))]
+    check(max(errs) <= TP_LOGITS_ROW_TOL, f"tensor_parallel (c): logits row errors {errs}")
+    tol, equal = TOL["bfloat16"], 0
+    for i in range(len(logits1)):       # the prefill's, then each step's, next tokens
+        mine, want = logits_c[i].argmax(-1), logits1[i].float()
+        top = want.max(-1).values
+        gap = top - want.gather(-1, mine[:, None])[:, 0]
+        check(bool((gap <= tol["atol"] + tol["rtol"] * top.abs()).all()),
+              f"tensor_parallel (c): token {i} is {gap.max().item()} below the top logit")
+        equal += int((mine == want.argmax(-1)).sum())
+    per = cfg.padded_heads // TP_RANKS
+    for r, rep in enumerate(ranks):
+        n = rep["launches"]["flash_attention"]
+        check(n == cfg.num_layers and rep["flash_attention_variants"] == {"hopper": n, "generic": 0}
+              and rep["flash_attention_calls_by_head_offset"] == {str(r * per): n},
+              f"tensor_parallel (c) rank {r}: {rep['flash_attention_variants']}, "
+              f"{rep['flash_attention_calls_by_head_offset']}")
+    out["gloo_ranks"] = {"ranks": ranks, "wall_s": wall, "logits_row_err": errs,
+                         "greedy_tokens_equal": equal,
+                         "greedy_tokens": len(logits1) * TP_PREFILL[0],
+                         "note": "gloo stages every collective through the host: "
+                                 "these times are not NVLink's"}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "tensor_parallel", **out})
+    return one["launches"], out["head_offset"], [rep["launches"] for rep in ranks]
 
 
 def main() -> int:
@@ -2980,8 +3337,14 @@ def main() -> int:
     # cell, the data-parallel ZeRO-1 train cell, the int8 reduction,
     # shard-local MoE, the elastic restore and qwen2-1.5b's prefill cell
     from repro_torch.kernels.flash_attention import kernel as FK
-    dist_launches = phase_distributed(torch, K, FK, handoff)
+    dist_launches, dist_logits = phase_distributed(torch, K, FK, handoff)
     del handoff
+
+    # 12. tensor parallelism: flash_attention's head offset at full width,
+    # qwen2-1.5b's prefill and decode cells on the TP code path at world
+    # size 1 (NCCL) and over 2 gloo ranks sharing the one card
+    tp_launches, tp_cases, tp_rank_launches = phase_tensor_parallel(torch, K, FK, dist_logits)
+    del dist_logits
 
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
@@ -2997,7 +3360,10 @@ def main() -> int:
                                     "train": train_launches[name],
                                     "zoo": {a: n[name] for a, n in zoo_launches.items()},
                                     "zoo_rest": {a: n[name] for a, n in rest_launches.items()},
-                                    "distributed": dist_launches[name]},
+                                    "distributed": dist_launches[name],
+                                    "tensor_parallel": tp_launches[name],
+                                    "tensor_parallel_gloo_ranks": [
+                                        n[name] for n in tp_rank_launches]},
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
@@ -3027,6 +3393,18 @@ def main() -> int:
                                for a, c in rest.items()}
             row["plain_route_prefills"] = sum(c["prefill_routes"]["plain"]
                                               for c in rest.values())
+            # phase 12 (a): one rank's heads (head_offset) at full width; the
+            # launches are phase 12 (c)'s on the rank that shard stands for
+            row["tensor_parallel_cases"] = [
+                {"case": c["case"], "dtype": c["dtype"], "q": c["q"],
+                 "head_offset": c["timed_offset"], "variant": c["variant"],
+                 "launches": (tp_rank_launches[1]["flash_attention"]
+                              if c["case"] == "qwen2_4096_tp2" else None),
+                 "full_launch_ms": c["full_launch_ms"],
+                 "full_launch_share_ms": c["full_launch_share_ms"],
+                 **{k: c[k] for k in ("max_abs_err", "max_row_rel_err", "ms", "generic_ms",
+                                      "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                for c in tp_cases]
         if name in COPY_MAIN_CASE:
             # the serve path's call (both pools, every layer: two launches),
             # the parent's call pattern for it, and the launches by variant

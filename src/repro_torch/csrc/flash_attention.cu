@@ -5,9 +5,13 @@
 // [B,H,Sq,D], k/v [B,KVH,Sk,D], a causal mask (k_pos <= q_pos) and/or a
 // sliding window (q_pos - k_pos < window) on positions counted from 0 at the
 // top left, Sq/Sk ragged, an online softmax in fp32, the output in the input
-// type.  One addition: `num_heads` real query heads out of H.  Real head h
-// reads KV head h / (num_heads / KVH); heads >= num_heads are padding and are
-// written as zeros (their rows of the output projection are zero).
+// type.  Two additions: `num_heads` real query heads, and `head_offset`, the
+// global head of q's first head (a tensor-parallel rank holds heads
+// [head_offset, head_offset + H)).  Global head g < num_heads reads KV head
+// g / (num_heads / KVH); heads g >= num_heads are padding and are written as
+// zeros (their rows of the output projection are zero).  A (q tile, head,
+// sequence) tile does the same work whatever the offset, so a shard's heads
+// are bitwise those of the launch over every head.
 //
 // What bounds it on an H100: operations, at the prefill shapes.  A causal
 // 4096-token prompt of qwen2-1.5b (12 heads, head_dim 128) has 8.4 M visible
@@ -90,7 +94,7 @@ struct Args {
   int64_t k_sb, k_sh, k_ss;      // (the head_dim stride is 1)
   int64_t v_sb, v_sh, v_ss;
   int64_t o_sb, o_sh, o_ss;
-  int H, num_heads, kvh, D, Sq, Sk;
+  int H, num_heads, head_offset, kvh, D, Sq, Sk;
   int causal, window;            // window <= 0: no window
   float scale;
   int vec;                       // 16-byte loads are valid for q, k and v
@@ -190,11 +194,11 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(Args a) {
 
   const int q_lo = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   T* o = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
-  if (h >= a.num_heads) {
+  if (a.head_offset + h >= a.num_heads) {
     zero_rows<T, kThreads>(a, o, q_lo);
     return;
   }
-  const int g_kv = h / (a.num_heads / a.kvh);
+  const int g_kv = (a.head_offset + h) / (a.num_heads / a.kvh);
   const T* qg = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + q_lo * a.q_ss;
   const T* kg = static_cast<const T*>(a.k) + b * a.k_sb + g_kv * a.k_sh;
   const T* vg = static_cast<const T*>(a.v) + b * a.v_sb + g_kv * a.v_sh;
@@ -338,11 +342,11 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(Args a) {
 
   const int q_lo = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   float* o = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
-  if (h >= a.num_heads) {
+  if (a.head_offset + h >= a.num_heads) {
     zero_rows<float, kThreads>(a, o, q_lo);
     return;
   }
-  const int g_kv = h / (a.num_heads / a.kvh);
+  const int g_kv = (a.head_offset + h) / (a.num_heads / a.kvh);
   const float* qg = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh + q_lo * a.q_ss;
   const float* kg = static_cast<const float*>(a.k) + b * a.k_sb + g_kv * a.k_sh;
   const float* vg = static_cast<const float*>(a.v) + b * a.v_sb + g_kv * a.v_sh;
@@ -453,7 +457,10 @@ constexpr int kConsumerThreads = 256;
 struct Args {
   __nv_bfloat16* o;
   int64_t o_sb, o_sh, o_ss;                // element strides of the output
-  int B, H, num_heads, kvh, Sq, Sk, causal, window, n_qt;
+  int B, H;
+  int n_real;                              // real heads of this launch: a prefix of H
+  int head_offset, group;                  // global head of head 0; q heads per KV head
+  int kvh, Sq, Sk, causal, window, n_qt;
   float scale_log2;                        // softmax scale * log2(e)
 };
 
@@ -474,9 +481,9 @@ __device__ __forceinline__ bool visible(const Args& a, int qp, int kp) {
 
 template <int D>
 __device__ void zero_tile(const Args& a, int id) {
-  const int pad = a.H - a.num_heads;
+  const int pad = a.H - a.n_real;
   const int per = pad * a.B;
-  const int qt = id / per, h = a.num_heads + (id % per) % pad, b = (id % per) / pad;
+  const int qt = id / per, h = a.n_real + (id % per) % pad, b = (id % per) / pad;
   __nv_bfloat16* o = a.o + b * a.o_sb + h * a.o_sh;
   const int q_lo = qt * kRows, rows = min(kRows, a.Sq - q_lo);
   constexpr int kChunks = D / 8;           // 16-byte chunks of a row
@@ -582,14 +589,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   // blockIdx.x -> (q tile, head, sequence): every real head's last q tile
   // (the longest under a causal mask) first, the first tiles after them,
   // then the padded heads, which only write zeros
-  const int real = a.num_heads * a.B;
+  const int real = a.n_real * a.B;
   if (static_cast<int>(blockIdx.x) >= a.n_qt * real) {
     zero_tile<D>(a, blockIdx.x - a.n_qt * real);
     return;
   }
   const int qt = a.n_qt - 1 - static_cast<int>(blockIdx.x) / real;
-  const int h = (blockIdx.x % real) % a.num_heads, b = (blockIdx.x % real) / a.num_heads;
-  const int g_kv = h / (a.num_heads / a.kvh);
+  const int h = (blockIdx.x % real) % a.n_real, b = (blockIdx.x % real) / a.n_real;
+  const int g_kv = (a.head_offset + h) / a.group;
   const int q_lo = qt * kRows;
   const int q_hi = min(q_lo + kRows, a.Sq);
   const int kv_end = a.causal ? min(a.Sk, q_hi) : a.Sk;
@@ -788,14 +795,14 @@ extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,
-    int B, int H, int num_heads, int kvh, int D, int Sq, int Sk, int causal, int window,
-    float scale, int vec, void* stream) {
-  if (D < 1 || D > kMaxD || kvh < 1 || num_heads < 1 || num_heads > H ||
+    int B, int H, int num_heads, int head_offset, int kvh, int D, int Sq, int Sk, int causal,
+    int window, float scale, int vec, void* stream) {
+  if (D < 1 || D > kMaxD || kvh < 1 || num_heads < 1 || head_offset < 0 ||
       num_heads % kvh != 0 || B < 1 || B > 65535 || H > 65535 || Sq < 1 || Sk < 0 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-         H, num_heads, kvh, D, Sq, Sk, causal, window, scale, vec};
+         H, num_heads, head_offset, kvh, D, Sq, Sk, causal, window, scale, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 16) return static_cast<int>(launch_dp<16>(dtype, B, a, s));
   if (D <= 32) return static_cast<int>(launch_dp<32>(dtype, B, a, s));
@@ -811,10 +818,10 @@ extern "C" int repro_flash_attention(
 // to the other kernels.
 extern "C" int repro_flash_attention_sm90(
     const void* q, const void* k, const void* v, void* o, const int64_t* geometry,
-    int64_t o_sb, int64_t o_sh, int64_t o_ss, int B, int H, int num_heads, int kvh, int D,
-    int Sq, int Sk, int causal, int window, float scale, void* stream) {
+    int64_t o_sb, int64_t o_sh, int64_t o_ss, int B, int H, int num_heads, int head_offset,
+    int kvh, int D, int Sq, int Sk, int causal, int window, float scale, void* stream) {
   const int64_t n_qt = (Sq + fa90::kRows - 1) / fa90::kRows;
-  if ((D != 64 && D != 128) || B < 1 || kvh < 1 || num_heads < 1 || num_heads > H ||
+  if ((D != 64 && D != 128) || B < 1 || kvh < 1 || num_heads < 1 || head_offset < 0 ||
       num_heads % kvh != 0 || Sq < 1 || Sk < 1 || n_qt * H * B > 0x7fffffff ||
       reinterpret_cast<uintptr_t>(o) % 16 != 0 || o_sb % 8 != 0 || o_sh % 8 != 0 ||
       o_ss % 8 != 0)
@@ -833,9 +840,12 @@ extern "C" int repro_flash_attention_sm90(
     const CUresult r = sm90::encode_bf16_4d(&maps[t], base[t], g, g + 4, g + 7);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   }
-  const fa90::Args a{static_cast<__nv_bfloat16*>(o), o_sb, o_sh, o_ss, B, H, num_heads, kvh,
-                     Sq, Sk, causal, window, static_cast<int>(n_qt),
-                     scale * 1.4426950408889634f};
+  // the real heads of this launch are a prefix: global heads below num_heads
+  const int left = num_heads > head_offset ? num_heads - head_offset : 0;
+  const int n_real = left < H ? left : H;
+  const fa90::Args a{static_cast<__nv_bfloat16*>(o), o_sb, o_sh, o_ss, B, H, n_real,
+                     head_offset, num_heads / kvh, kvh, Sq, Sk, causal, window,
+                     static_cast<int>(n_qt), scale * 1.4426950408889634f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(D == 64 ? fa90::launch<64>(maps, a, s) : fa90::launch<128>(maps, a, s));
 }

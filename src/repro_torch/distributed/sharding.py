@@ -39,7 +39,6 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from ..interop import tree_map
-from ..models.common import is_tuple
 
 LogicalAxis = Optional[str]
 SpecEntry = Union[None, str, Tuple[str, ...]]
@@ -120,6 +119,11 @@ def use_mesh(mesh, rules: Optional[dict] = None):
 
 def active_mesh():
     return _CTX.mesh
+
+
+def active_rules() -> dict:
+    """A copy of this thread's rules (``use_mesh``'s, else the defaults)."""
+    return dict(_CTX.rules)
 
 
 def _resolve_axis(logical: LogicalAxis, mesh: MeshSpec, dim_size: int) -> SpecEntry:
@@ -247,6 +251,9 @@ def with_logical_constraint(x, *logical_axes: LogicalAxis):
 
 def param_sharding_tree(logical_tree, shape_tree, mesh=None):
     """Map a tree of logical-axis tuples + shapes to :class:`Sharding`."""
+    # imported here: the models import this package's tensor_parallel
+    from ..models.common import is_tuple
+
     mesh = mesh if mesh is not None else _CTX.mesh
     return tree_map(lambda ax, shp: logical_sharding(ax, shp, mesh),
                     logical_tree, shape_tree, is_leaf=is_tuple)

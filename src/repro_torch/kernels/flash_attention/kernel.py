@@ -17,10 +17,13 @@ between before it launches (:func:`choose_variant`):
 Both keep the online softmax in fp32, walk only the KV tiles the
 causal/window mask can see, read q/k/v through their strides (the head_dim
 stride must be 1; a ``transpose(1, 2)`` view of a ``[B,S,H,D]`` tensor is
-read in place), and write padded heads as zeros.  The wrapper checks device,
-dtype and shapes, allocates the output, launches on PyTorch's current
-stream without synchronising, and raises if the launch (or a tensor-map
-encode) failed; it never retries on the other variant.  Each launch adds
+read in place), and write padded heads as zeros.  ``head_offset`` names the
+global head of q's first head (a tensor-parallel rank's own heads); each
+(batch, head) tile then runs the work it runs in the launch over every
+head, so a shard's heads are bitwise those of that launch.  The wrapper
+checks device, dtype and shapes, allocates the output, launches on
+PyTorch's current stream without synchronising, and raises if the launch
+(or a tensor-map encode) failed; it never retries on the other variant.  Each launch adds
 one to ``launch_counts["flash_attention"]`` and one to
 ``variant_counts[<variant>]``.
 """
@@ -58,10 +61,10 @@ def _function(variant: str):
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         if variant == "hopper":
             fn = lib.repro_flash_attention_sm90
-            fn.argtypes = ([p] * 5 + [i64] * 3 + [i] * 9 + [ctypes.c_float, p])
+            fn.argtypes = ([p] * 5 + [i64] * 3 + [i] * 10 + [ctypes.c_float, p])
         else:
             fn = lib.repro_flash_attention
-            fn.argtypes = ([p, p, p, p, i] + [i64] * 12 + [i] * 9
+            fn.argtypes = ([p, p, p, p, i] + [i64] * 12 + [i] * 10
                            + [ctypes.c_float, i, p])
         fn.restype = ctypes.c_int
         _fns[variant] = fn
@@ -107,22 +110,26 @@ def choose_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     num_heads: Optional[int] = None,
-                    variant: Optional[str] = None) -> torch.Tensor:
+                    variant: Optional[str] = None, head_offset: int = 0) -> torch.Tensor:
     """Self-attention over whole sequences, on the card.
 
     q:         [B, H, Sq, D]     any strides, head_dim stride 1
     k, v:      [B, KVH, Sk, D]   the same
     causal:    mask k_pos > q_pos (positions from 0 at the top left)
     window:    also mask q_pos - k_pos >= window (None: no window)
-    num_heads: real query heads (default H); head i < num_heads reads KV
-               head i // (num_heads // KVH), heads past it come back as zeros
+    num_heads: real query heads of the model (default head_offset + H);
+               global head i < num_heads reads KV head i // (num_heads //
+               KVH), heads past it come back as zeros
+    head_offset: local head j of q is global head head_offset + j (a
+               tensor-parallel rank's heads; a shard may hold padded heads
+               only, and then reads nothing)
     variant:   None chooses (:func:`choose_variant`); ``"generic"`` forces
                the generic kernel, ``"hopper"`` raises where it cannot run
     returns    [B, H, Sq, D] in q's dtype, laid out as [B, Sq, H, D] in
                memory (so ``out.transpose(1, 2)`` is contiguous)
     """
     b, h, sq, d = q.shape
-    nh = h if num_heads is None else num_heads
+    nh = head_offset + h if num_heads is None else num_heads
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
@@ -132,9 +139,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel: q/k/v must share one of "
                         f"{list(_DTYPES)}, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if not 0 < nh <= h or nh % kvh or not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel: needs num_heads ({nh}) a multiple of "
-                         f"KVH ({kvh}) and <= H ({h}); 0 < D <= {MAX_HEAD_DIM} (D={d})")
+    if head_offset < 0 or nh <= 0 or nh % kvh or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel: needs num_heads ({nh}) > 0 a multiple "
+                         f"of KVH ({kvh}), head_offset ({head_offset}) >= 0 and "
+                         f"0 < D <= {MAX_HEAD_DIM} (D={d})")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention kernel: window must be >= 1, got {window}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
@@ -155,7 +163,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _function("hopper")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             (ctypes.c_int64 * len(geometry))(*geometry), *out.stride()[:3],
-            b, h, nh, kvh, d, sq, sk, int(causal), window or 0, 1.0 / math.sqrt(d), stream)
+            b, h, nh, head_offset, kvh, d, sq, sk, int(causal), window or 0,
+            1.0 / math.sqrt(d), stream)
         if err < 0:
             raise RuntimeError(f"flash_attention kernel: cuTensorMapEncodeTiled failed "
                                f"with CUresult {-err}")
@@ -163,8 +172,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _function("generic")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            b, h, nh, kvh, d, sq, sk, int(causal), window or 0, 1.0 / math.sqrt(d),
-            int(_vectorizable((q, k, v), d)), stream)
+            b, h, nh, head_offset, kvh, d, sq, sk, int(causal), window or 0,
+            1.0 / math.sqrt(d), int(_vectorizable((q, k, v), d)), stream)
     check_launch("flash_attention", err)
     variant_counts[variant] += 1
     return out

@@ -11,12 +11,14 @@ from .kernel import flash_attention as _cuda
 from .ref import flash_attention_ref
 
 
-def flash_attention(q, k, v, causal=True, window=None, impl="auto", num_heads=None):
+def flash_attention(q, k, v, causal=True, window=None, impl="auto", num_heads=None,
+                    head_offset=0):
     if impl == "auto":
         impl = "cuda" if q.is_cuda else "ref"
     if impl == "cuda":
-        return _cuda(q, k, v, causal=causal, window=window, num_heads=num_heads)
+        return _cuda(q, k, v, causal=causal, window=window, num_heads=num_heads,
+                     head_offset=head_offset)
     if impl == "ref":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   num_heads=num_heads)
+                                   num_heads=num_heads, head_offset=head_offset)
     raise ValueError(f"unknown impl {impl!r}; choose auto, cuda or ref")

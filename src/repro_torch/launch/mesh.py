@@ -5,7 +5,8 @@ and the card's constants (port of ``repro/launch/mesh.py``).
 sizes, no devices), so importing this module or building a production mesh
 touches no device state, as the dry-run contract requires.
 ``make_host_mesh`` is the executing mesh: the ranks of an initialised
-process group as a 1-D ``"data"`` mesh.
+process group as a 1-D ``"data"`` mesh, or as ``("data", "model")`` with a
+``model`` axis for the tensor-parallel cells.
 
 The reference's v5e roofline constants are not carried over.  In their
 place stand the H100's, from NVIDIA's data sheet for the SXM part at its
@@ -13,6 +14,8 @@ full power limit.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 from ..distributed.sharding import DEFAULT_RULES, MeshSpec
 
@@ -57,9 +60,11 @@ def init_process_group(device: str, init_method: str, world_size: int = 1,
                             world_size=world_size, rank=rank)
 
 
-def make_host_mesh(device: str = "cuda"):
-    """The initialised process group's ranks as a 1-D ``"data"`` DeviceMesh
-    on ``device`` (whose backend the group must have)."""
+def make_host_mesh(device: str = "cuda", model: Optional[int] = None):
+    """The initialised process group's ranks as a DeviceMesh on ``device``
+    (whose backend the group must have): 1-D ``"data"``, or with ``model``
+    a ``("data", "model")`` mesh of world / model x model ranks, each run
+    of ``model`` consecutive ranks one data row."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -69,7 +74,12 @@ def make_host_mesh(device: str = "cuda"):
     if dist.get_backend() != backend_for(kind):
         raise RuntimeError(f"make_host_mesh: the process group runs {dist.get_backend()}, "
                            f"device {device!r} needs {backend_for(kind)}")
-    return init_device_mesh(kind, (dist.get_world_size(),), mesh_dim_names=("data",))
+    world = dist.get_world_size()
+    if model is None:
+        return init_device_mesh(kind, (world,), mesh_dim_names=("data",))
+    if model < 1 or world % model:
+        raise ValueError(f"make_host_mesh: model {model} does not divide the world of {world}")
+    return init_device_mesh(kind, (world // model, model), mesh_dim_names=("data", "model"))
 
 
 def rules_for(kind: str, cfg=None) -> dict:

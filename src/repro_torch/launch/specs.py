@@ -7,10 +7,10 @@ sharding.py``).  ``build_cell`` returns a :class:`Cell`: the callable, its
 meta arguments, and the specs of its arguments and outputs.  The dry run
 (``launch/dryrun.py``) reads only the meta tensors and the specs.
 
-The callable executes on a ``DeviceMesh`` whose parameters are replicated:
-``model`` of size 1, or any mesh under ``parallelism="dp"``'s rules.  Each
-rank runs the single-device model code on its local batch shard, and the
-cell reduces what crosses ranks itself:
+The callable executes on a ``DeviceMesh``.  Each rank holds its local
+shard of every argument (``local_tree``) and returns its local shard of
+every output under the cell's specs; the cell reduces what crosses ranks
+itself:
 
 * train: data parallel over the batch's mesh axes with ZeRO-1 AdamW
   moments.  Each rank's gradients are weighted by its share of the loss
@@ -21,11 +21,20 @@ cell reduces what crosses ranks itself:
   moments and gathers the updated params.  The arithmetic per element is
   ``apply_update``'s, so at world size 1 the step is bitwise
   ``train_step``'s.
-* prefill / decode: ``T.prefill`` / ``T.decode_step`` on the local shard.
+  The train cell is data parallel only: its params are replicated.
+* prefill / decode: ``T.prefill`` / ``T.decode_step`` under the mesh and
+  the rules the cell was built with.  Over ``model`` > 1 the dense
+  decoders run tensor-parallel on their parameter shards (heads, KV heads,
+  ffn and vocab split, the decode cache split by sequence), the reference's
+  sharding constraints made explicit collectives (``models/blocks.py``,
+  ``distributed/tensor_parallel.py``).  The logits are gathered to the whole
+  vocabulary; the cache comes back as this rank's shard (the prefill's split
+  by KV heads where the rules split them, the decode's by sequence).
 
-Tensor-parallel execution (heads, ffn, vocab or a sequence-sharded cache
-over ``model`` > 1) raises ``NotImplementedError``: ROADMAP.md, Queue 1
-item 8, what is left (1).
+What is not ported raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item (:func:`_require_executable`): the train cell, and the prefill and
+decode cells of the other families, over a mesh axis of size > 1 that a
+parameter or cache spec names.
 """
 
 from __future__ import annotations
@@ -40,8 +49,8 @@ import torch.distributed as dist
 
 from .. import torch_dtype
 from ..configs.base import ModelConfig, ShapeConfig
-from ..distributed.sharding import (entry_axes, gather_shard, is_device_mesh, logical_pspec,
-                                    mesh_spec, shard_slices)
+from ..distributed.sharding import (active_rules, entry_axes, gather_shard, is_device_mesh,
+                                    logical_pspec, mesh_spec, shard_slices, use_mesh)
 from ..interop import tree_flatten, tree_map, tree_unflatten
 from ..models import transformer as T
 from ..models.common import is_tuple, shapes_tree
@@ -241,25 +250,71 @@ class Cell:
     out_specs: tuple
 
 
-def _require_executable(mesh, specs) -> None:
-    """The callables run on a DeviceMesh on which every spec in ``specs``
-    names only axes of size 1 (replicated parameters, cache unsharded but
-    for its batch)."""
+# families whose tensor-parallel cells are not ported: (name, ROADMAP.md item)
+TP_TODO = {
+    "moe": ("MoE (expert / expert_ffn over model)", "Queue 1 item 2 (b)"),
+    "hymba": ("hymba's SSM (ssm_inner over model)", "Queue 1 item 2 (c)"),
+    "xlstm": ("xLSTM (mLSTM / sLSTM blocks)", "Queue 1 item 2 (d)"),
+    "mrope": ("qwen2-vl's M-RoPE embeddings path", "Queue 1 item 2 (e)"),
+    "encdec": ("the encoder-decoder's cross-attention", "Queue 1 item 2 (f)"),
+}
+TP_TRAIN_TODO = "Queue 1 item 2 (a)"
+TP_HEAD_CACHE_TODO = "Queue 1 item 2 (g)"     # a decode cache split by KV heads
+
+
+def _family(cfg: ModelConfig) -> Optional[str]:
+    """The :data:`TP_TODO` family of ``cfg``, or None for a dense decoder
+    (token input, RoPE, every segment ``dense``)."""
+    kinds = {seg.kind for seg in cfg.decoder_plan()}
+    if cfg.is_encdec:
+        return "encdec"
+    if cfg.mrope_sections is not None or cfg.input_mode == "embeds":
+        return "mrope"
+    if "moe" in kinds:
+        return "moe"
+    if "hymba" in kinds:
+        return "hymba"
+    if kinds & {"mlstm", "slstm"}:
+        return "xlstm"
+    return None
+
+
+def _split_axes(mesh, specs) -> list:
+    """The mesh axes of size > 1 that any spec in ``specs`` names."""
+    sizes = mesh_spec(mesh).sizes
+    return sorted({a for tree in specs for spec in tree_flatten(tree, is_tuple)[0]
+                   for e in spec for a in entry_axes(e) if sizes[a] > 1})
+
+
+def _require_executable(cfg: ModelConfig, kind: str, mesh, specs) -> None:
+    """Raise where the cell cannot run on ``mesh``: a MeshSpec (accounting
+    only), or ``specs`` (params and the cache's non-batch dims) split over
+    an axis of size > 1 for the train cell or a family not yet ported."""
     if not is_device_mesh(mesh):
         raise TypeError("a cell executes on a DeviceMesh; a MeshSpec only accounts")
-    sizes = mesh_spec(mesh).sizes
-    for tree in specs:
-        for spec in tree_flatten(tree, is_tuple)[0]:
-            for e in spec:
-                big = [a for a in entry_axes(e) if sizes[a] > 1]
-                if big:
-                    raise NotImplementedError(
-                        f"tensor-parallel execution over {big} is not ported: "
-                        "ROADMAP.md, Queue 1 item 8, what is left (1)")
+    big = _split_axes(mesh, specs)
+    if not big:
+        return
+    if kind == "train":
+        raise NotImplementedError(
+            f"the train cell of {cfg.name} over {big}: tensor-parallel training is not "
+            f"ported (ROADMAP.md, {TP_TRAIN_TODO})")
+    family = _family(cfg)
+    if family is not None:
+        what, item = TP_TODO[family]
+        raise NotImplementedError(
+            f"the {kind} cell of {cfg.name} over {big}: tensor-parallel {what} is not "
+            f"ported (ROADMAP.md, {item})")
+
+
+def _unbatched(c_specs) -> list:
+    """Cache specs with the batch entry (dim 1) dropped: the cells build and
+    take caches of their local batch."""
+    return [{k: s[:1] + (None,) + s[2:] for k, s in seg.items()} for seg in c_specs]
 
 
 def _train_fn(cfg, tcfg, mesh, p_specs, o_specs, b_specs, params, opt_state, batch):
-    _require_executable(mesh, (p_specs,))
+    _require_executable(cfg, "train", mesh, (p_specs,))
     groups = [mesh.get_group(a) for a in entry_axes(b_specs["labels"][0])]
     labels, mask = batch["labels"], batch.get("loss_mask")
     n_local = (mask.sum() if mask is not None else torch.tensor(labels.numel())).to(
@@ -281,27 +336,39 @@ def _train_fn(cfg, tcfg, mesh, p_specs, o_specs, b_specs, params, opt_state, bat
     return params, opt_state, metrics
 
 
-def _prefill_fn(cfg, shape, mesh, p_specs, c_specs, params, batch):
-    _require_executable(mesh, (p_specs, [{k: s[:1] + s[2:] for k, s in seg.items()}
-                                         for seg in c_specs]))
+def _prefill_fn(cfg, shape, mesh, rules, p_specs, c_specs, params, batch):
+    c_local = _unbatched(c_specs)
+    _require_executable(cfg, "prefill", mesh, (p_specs, c_local))
     first = tree_flatten(batch)[0][0]
-    cache = T.init_cache(cfg, first.shape[0], shape.seq_len, torch_dtype(cfg.compute_dtype),
-                         device=first.device,
-                         memory_len=shape.seq_len if cfg.is_encdec else None)
-    last_hidden, cache = T.prefill(cfg, params, batch, cache)
-    return T.lm_logits(cfg, params, last_hidden), cache
+    with use_mesh(mesh, rules):
+        cache = T.init_cache(cfg, first.shape[0], shape.seq_len,
+                             torch_dtype(cfg.compute_dtype), device=first.device,
+                             memory_len=shape.seq_len if cfg.is_encdec else None)
+        last_hidden, cache = T.prefill(cfg, params, batch, cache)
+        logits = T.lm_logits(cfg, params, last_hidden)
+    return logits, local_tree(cache, c_local, mesh)
 
 
-def _decode_fn(cfg, mesh, p_specs, c_specs, params, cache, tokens, cur_pos):
-    _require_executable(mesh, (p_specs, [{k: s[:1] + s[2:] for k, s in seg.items()}
-                                         for seg in c_specs]))
-    return T.decode_step(cfg, params, cache, tokens, cur_pos)
+def _decode_fn(cfg, shape, mesh, rules, p_specs, c_specs, params, cache, tokens, cur_pos):
+    c_local = _unbatched(c_specs)
+    _require_executable(cfg, "decode", mesh, (p_specs, c_local))
+    sizes = mesh_spec(mesh).sizes
+    for seg in c_local:
+        if any(sizes[a] > 1 for a in entry_axes(seg["k"][3])):
+            raise NotImplementedError(
+                f"the decode cell of {cfg.name}: a cache split by KV heads (its length "
+                f"{shape.seq_len} not divisible by the mesh) is not ported "
+                f"(ROADMAP.md, {TP_HEAD_CACHE_TODO})")
+    with use_mesh(mesh, rules):
+        return T.decode_step(cfg, params, cache, tokens, cur_pos, seq_len=shape.seq_len)
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                tcfg: Optional[TrainConfig] = None) -> Cell:
     """The cell's callable, meta arguments and outputs, and specs, under the
-    active rules (``use_mesh(mesh, rules_for(shape.kind, cfg))``)."""
+    active rules (``use_mesh(mesh, rules_for(shape.kind, cfg))``), which
+    the prefill and decode callables run under."""
+    rules = active_rules()
     p_specs = param_pspecs(cfg, mesh)
     a_params = abstract_params(cfg)
     b_specs = batch_pspecs(cfg, shape, mesh)
@@ -321,9 +388,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     logits = _meta((shape.global_batch, cfg.padded_vocab), torch_dtype(cfg.compute_dtype))
     out, out_specs = (logits, a_cache), (bp + (None,), c_specs)
     if shape.kind == "prefill":
-        fn = partial(_prefill_fn, cfg, shape, mesh, p_specs, c_specs)
+        fn = partial(_prefill_fn, cfg, shape, mesh, rules, p_specs, c_specs)
         return Cell(fn, (a_params, a_batch), (p_specs, b_specs), out, out_specs)
 
-    fn = partial(_decode_fn, cfg, mesh, p_specs, c_specs)
+    fn = partial(_decode_fn, cfg, shape, mesh, rules, p_specs, c_specs)
     return Cell(fn, (a_params, a_cache, a_batch["tokens"], a_batch["cur_pos"]),
                 (p_specs, c_specs, bp, bp), out, out_specs)

@@ -28,6 +28,27 @@ and the kernel reads only the last ``window``);
 :func:`_gather_paged` (gather pages, then plain ``decode_attention``) stays
 as the oracle the tests hold that path to.
 
+Under an active ``DeviceMesh`` (the prefill and decode cells) ``p`` holds
+this rank's shards, split as ``launch/specs.param_pspecs`` says, and the
+reference's sharding constraints are explicit collectives
+(``distributed/tensor_parallel.py``):
+
+* attention: ``wq`` / ``bq`` are column shards over ``padded_heads·D``,
+  ``wk`` / ``wv`` / ``bk`` / ``bv`` over ``KV·D`` (a shard may cut a KV
+  head, so K and V are gathered to whole KV heads), ``wo`` a row shard.  A
+  prefill on the kernel route attends this rank's own heads where its
+  columns are whole heads (``flash_attention``'s ``head_offset``); elsewhere
+  q is gathered to every head.  Each rank multiplies the columns of ``o``
+  that its ``wo`` rows take, and the partial products are summed.
+* decode: the cache is split by sequence (``kv_seq``); the new token is
+  written by the rank whose slice holds its slot, each rank attends every
+  head over its slice, and the slices' softmax parts are combined
+  (flash-decoding: a max, then one sum of the rescaled numerators and
+  normalisers).
+* MLP: ``w_gate`` / ``w_up`` / ``w_in`` / ``b_in`` column shards over
+  ``d_ff``, ``w_down`` / ``w_out`` row shards; the partial products are
+  summed, then ``b_out`` is added once.
+
 Under M-RoPE the contiguous cache is filled by sequence index, and the
 ``pos`` row holds each entry's temporal position, which the decode mask
 reads; a decode step appends at the first free slot.  (The JAX package
@@ -44,6 +65,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, Segment
+from ..distributed.tensor_parallel import Shard, all_gather, all_reduce_sum, shard_of
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_attention
 from .common import ParamSpec, fan_in_init, ones_init, zeros_init
@@ -54,6 +76,7 @@ from .layers import (
     apply_rope,
     attention,
     decode_attention,
+    decode_attention_sharded,
     expand_kv,
     gelu_mlp,
     make_qh_to_kv_map,
@@ -82,6 +105,9 @@ class BlockCtx:
     default_positions: bool = False
     memory: Optional[torch.Tensor] = None       # encoder output [B, Sm, d]
     memory_positions: Optional[torch.Tensor] = None   # [B, Sm]
+    # decode: the contiguous cache's global length where the mesh may split
+    # it by sequence (None: the cache is whole)
+    seq_len: Optional[int] = None
 
 
 # ----------------------------------------------------------------- attention
@@ -112,17 +138,46 @@ def attn_param_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, hs: Shard, kvs: Shard,
+         whole_q: bool):
+    """(q, k, v [B,S,*,D], h0): k and v over every KV head; q over this
+    rank's heads from global head ``h0`` where its ``hs`` columns are whole
+    heads and ``whole_q`` is false, else over every head (``h0`` 0)."""
     b, s, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.padded_heads, cfg.head_dim)
+    k, v = all_gather(k, -1, kvs), all_gather(v, -1, kvs)
+    h0 = hs.offset // cfg.head_dim
+    if hs.split and (whole_q or hs.size % cfg.head_dim):
+        q, h0 = all_gather(q, -1, hs), 0
+    q = q.reshape(b, s, -1, cfg.head_dim)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    return q, k, v
+    return q, k, v, h0
+
+
+def _out_proj(p: dict, o: torch.Tensor, hs: Shard) -> torch.Tensor:
+    """o [B,S,*·D] @ wo: this rank's rows of wo take the columns of o they
+    multiply (o may hold more heads than they do); the ranks' partial
+    products are summed."""
+    if o.shape[-1] != hs.size:
+        o = o[..., hs.slice]
+    return all_reduce_sum(o @ p["wo"], hs)
+
+
+def _seq_shard(ctx: BlockCtx, window: Optional[int], local_len: int) -> Shard:
+    """This rank's slice of the decode cache's sequence."""
+    if ctx.seq_len is None:
+        return Shard(0, local_len, local_len)
+    total = ctx.seq_len if window is None else min(ctx.seq_len, window)
+    ss = shard_of("kv_seq", total)
+    if ss.size != local_len:
+        raise ValueError(f"decode: a cache of {local_len} positions is not this rank's "
+                         f"slice {ss} of {total}")
+    return ss
 
 
 def _rope_q_positions(positions: torch.Tensor) -> torch.Tensor:
@@ -159,7 +214,10 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
                           q_pos, ctx.memory_positions)
         return o.reshape(b, s, -1) @ p["wo"], None
 
-    q, k, v = _qkv(cfg, p, x)
+    kernel_route = ctx.mode == "prefill" and ctx.default_positions
+    hs = shard_of("heads", cfg.padded_heads * cfg.head_dim)
+    kvs = shard_of("kv_heads", cfg.num_kv_heads * cfg.head_dim)
+    q, k, v, h0 = _qkv(cfg, p, x, hs, kvs, whole_q=not kernel_route)
     q = apply_rope(q, ctx.positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, ctx.positions, cfg.rope_theta, cfg.mrope_sections)
     window = seg.window
@@ -167,13 +225,13 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
     by_index = cfg.mrope_sections is not None
     new_cache = None
 
-    if ctx.mode == "prefill" and ctx.default_positions:
+    if kernel_route:
         # the kernel reads the [B,S,*,D] tensors as [B,*,S,D] views in place,
         # attends the real heads over un-expanded KV and zeros the padded
         # ones (their wo rows are zero); its output is [B,S,H,D] in memory
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                            causal=causal, window=window,
-                            num_heads=cfg.num_heads).transpose(1, 2)
+                            causal=causal, window=window, num_heads=cfg.num_heads,
+                            head_offset=h0).transpose(1, 2)
         if ctx.cache is not None:
             new_cache = _write_prefill_cache(ctx.cache, k, v, q_pos, window, by_index)
     elif ctx.mode in ("train", "prefill"):
@@ -199,13 +257,17 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
                             window=window)
     else:  # decode: one token against a contiguous cache
         assert s == 1
-        new_cache = _write_decode_cache(ctx.cache, k, v, ctx.cur_pos, window, by_index)
+        ss = _seq_shard(ctx, window, ctx.cache["k"].shape[1])
+        new_cache = _write_decode_cache(ctx.cache, k, v, ctx.cur_pos, window, by_index, ss)
         kc, vc = new_cache["k"], new_cache["v"]
         if cfg.decode_kv_expand or cfg.padded_heads != cfg.num_heads:
             qh_map = kv_map()
             kc, vc = expand_kv(kc, qh_map), expand_kv(vc, qh_map)
-        o = decode_attention(q, kc, vc, new_cache["pos"], ctx.cur_pos, window)
-    return o.reshape(b, s, -1) @ p["wo"], new_cache
+        if ss.split:
+            o = decode_attention_sharded(q, kc, vc, new_cache["pos"], ctx.cur_pos, window, ss)
+        else:
+            o = decode_attention(q, kc, vc, new_cache["pos"], ctx.cur_pos, window)
+    return _out_proj(p, o.reshape(b, s, -1), hs), new_cache
 
 
 def cross_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict) -> torch.Tensor:
@@ -282,20 +344,33 @@ def _gather_paged(cache):
     return kc, vc, kpos, lens - 1                          # cur_pos = len-1
 
 
-def _write_decode_cache(cache, k, v, cur_pos, window, by_index=False):
+def _write_decode_cache(cache, k, v, cur_pos, window, by_index=False,
+                        seq: Optional[Shard] = None):
     """Write one token into a contiguous (possibly ring) cache, in place.
-    With ``by_index`` (M-RoPE) it goes to the first free slot."""
+    With ``by_index`` (M-RoPE) it goes to the first free slot.  With the
+    cache split by sequence (``seq``), the slot is counted in the whole
+    cache and only the rank whose slice holds it writes."""
     S_cache = cache["k"].shape[1]
     b = k.shape[0]
     if by_index:
         slots = (cache["pos"] >= 0).sum(dim=1)
     else:
-        slots = (cur_pos % S_cache) if window is not None else cur_pos
+        total = S_cache if seq is None else seq.total
+        slots = (cur_pos % total) if window is not None else cur_pos
     slots = slots.long()
     bi = torch.arange(b, device=k.device)
-    cache["k"][bi, slots] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bi, slots] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][bi, slots] = cur_pos.to(cache["pos"].dtype)
+    new = {"k": k[:, 0], "v": v[:, 0], "pos": cur_pos}
+    if seq is None or not seq.split:
+        for name, t in new.items():
+            cache[name][bi, slots] = t.to(cache[name].dtype)
+        return cache
+    local = slots - seq.offset
+    own = (local >= 0) & (local < S_cache)
+    local = local.clamp(0, S_cache - 1)
+    for name, t in new.items():
+        keep = own.view((b,) + (1,) * (t.dim() - 1))
+        cache[name][bi, local] = torch.where(keep, t.to(cache[name].dtype),
+                                             cache[name][bi, local])
     return cache
 
 
@@ -331,9 +406,14 @@ def mlp_param_specs(cfg: ModelConfig) -> dict:
 
 
 def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Split on ffn over the mesh, the ranks' partial products are summed
+    and ``b_out`` is added once, after the sum."""
+    fs = shard_of("ffn", cfg.d_ff)
     if cfg.act == "gelu":
-        return gelu_mlp(x, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        if not fs.split:
+            return gelu_mlp(x, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
+        return all_reduce_sum(gelu_mlp(x, p["w_in"], p["b_in"], p["w_out"]), fs) + p["b_out"]
+    return all_reduce_sum(swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), fs)
 
 
 # --------------------------------------------------------------- block kinds

@@ -26,6 +26,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.tensor_parallel import Shard, all_reduce_max, all_reduce_sum
+
 NEG_INF = -2.0e38  # fp32-safe mask value (avoid inf arithmetic -> NaN)
 
 
@@ -283,6 +285,20 @@ class FlashVJPAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _decode_scores(q, k_cache, k_positions, cur_pos, window):
+    """A decode token's fp32 scores [B,KVH,rep,S] against the cache and
+    which keys it sees [B, S]."""
+    kvh = k_cache.shape[2]
+    qg = _group(q, kvh).float()[:, 0]                          # [B,KVH,rep,D]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float()) * scale
+    dlt = cur_pos[:, None] - k_positions                       # [B, S]
+    ok = (k_positions >= 0) & (dlt >= 0)
+    if window is not None:
+        ok &= dlt < window
+    return s, ok
+
+
 def decode_attention(q, k_cache, v_cache, k_positions, cur_pos,
                      window: Optional[int] = None) -> torch.Tensor:
     """Single-token attention against a (possibly ring) KV cache.
@@ -291,18 +307,37 @@ def decode_attention(q, k_cache, v_cache, k_positions, cur_pos,
     (< 0 => invalid); cur_pos: [B] int.
     """
     b, _, h, d = q.shape
-    kvh = k_cache.shape[2]
-    qg = _group(q, kvh).float()[:, 0]                          # [B,KVH,rep,D]
-    scale = 1.0 / math.sqrt(d)
-    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float()) * scale
-    dlt = cur_pos[:, None] - k_positions                       # [B, S]
-    ok = (k_positions >= 0) & (dlt >= 0)
-    if window is not None:
-        ok &= dlt < window
+    s, ok = _decode_scores(q, k_cache, k_positions, cur_pos, window)
     zero = torch.zeros((), dtype=torch.float32, device=q.device)
     s = s + torch.where(ok, zero, torch.full_like(zero, NEG_INF))[:, None, None, :]
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention_sharded(q, k_cache, v_cache, k_positions, cur_pos,
+                             window: Optional[int], seq: Shard) -> torch.Tensor:
+    """:func:`decode_attention` over a cache split by sequence over the
+    mesh (``seq``): each rank attends every head over its slice, then the
+    slices are combined flash-decoding style,
+
+        m = max_r m_r,   o = sum_r e^{m_r - m} acc_r / sum_r e^{m_r - m} l_r
+
+    with ``acc_r`` the slice's unnormalised ``p @ v`` and ``l_r`` its
+    normaliser; a slice with no visible key has ``m_r = -inf`` and weight 0.
+    Arguments as :func:`decode_attention`'s, the cache and positions being
+    this rank's slice."""
+    b, _, h, d = q.shape
+    s, ok = _decode_scores(q, k_cache, k_positions, cur_pos, window)
+    s = s.masked_fill(~ok[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1)                                         # [B,KVH,rep]
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    acc = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
+    m_all = all_reduce_max(m.clone(), seq)
+    w = torch.exp(m - torch.where(torch.isfinite(m_all), m_all, 0.0))
+    parts = torch.cat([acc * w[..., None], (p.sum(dim=-1) * w)[..., None]], dim=-1)
+    parts = all_reduce_sum(parts, seq)
+    o = parts[..., :d] / torch.clamp(parts[..., d:], min=1e-37)
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
@@ -313,9 +348,11 @@ def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
-def gelu_mlp(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
-    """GELU MLP with biases (``jax.nn.gelu``'s default: the tanh form)."""
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+def gelu_mlp(x, w_in, b_in, w_out, b_out=None) -> torch.Tensor:
+    """GELU MLP with biases (``jax.nn.gelu``'s default: the tanh form);
+    ``b_out`` None leaves the output bias to the caller."""
+    y = F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out
+    return y if b_out is None else y + b_out
 
 
 # ---------------------------------------------------------- GQA head mapping

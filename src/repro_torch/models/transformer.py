@@ -15,8 +15,13 @@ Entry points (functions of (cfg, params, ...), as in the JAX package):
   decode_step                     one token per sequence through the cache
 
 Each homogeneous segment runs as a Python loop over its stacked layers
-(the JAX package scanned them with ``jax.lax.scan``); sharding constraints
-are dropped (one device).  Caches are updated in place; a function that
+(the JAX package scanned them with ``jax.lax.scan``).  Under an active
+``DeviceMesh`` (the prefill and decode cells, ``launch/specs.py``) the
+params are each rank's shards and the reference's sharding constraints
+become explicit collectives (``distributed/tensor_parallel.py``): the
+embedding and the LM head split on ``vocab``, attention on ``heads`` /
+``kv_heads`` (and the decode cache on ``kv_seq``), the MLP on ``ffn``.
+Without a mesh every collective is the identity.  Caches are updated in place; a function that
 takes a cache returns it (with any new entries, such as the paged ``len``).
 A model with meta tokens (hymba) runs a learned prefix of
 ``num_meta_tokens`` positions ahead of every prompt; ``forward_train``
@@ -44,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device, torch_dtype
 from ..configs.base import ModelConfig, Segment
+from ..distributed.tensor_parallel import all_gather, all_reduce_sum, shard_of
 from ..interop import tree_map
 from .blocks import BlockCtx, block_apply, block_cache_init, block_param_specs
 from .common import (ParamSpec, init_param_tree, logical_axes_tree, normal_init, ones_init,
@@ -122,16 +128,31 @@ def param_logical_axes(cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    """Rows of ``embed``.  Split on vocab, each rank looks up the ids in its
+    range, writes zeros for the others, and the ranks' rows are summed: one
+    rank contributes each row, so the sum is the lookup's bits."""
+    vs = shard_of("vocab", cfg.padded_vocab)
+    ids = tokens.long()
+    if not vs.split:
+        return params["embed"][ids].to(torch_dtype(cfg.compute_dtype))
+    ids = ids - vs.offset
+    own = ((ids >= 0) & (ids < vs.size))[..., None]
+    rows = params["embed"][ids.clamp(0, vs.size - 1)]
+    rows = torch.where(own, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return all_reduce_sum(rows, vs).to(torch_dtype(cfg.compute_dtype))
 
 
 def lm_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """hidden [.., d] -> logits [.., padded_vocab], padded region masked."""
+    """hidden [.., d] -> logits [.., padded_vocab], padded region masked.
+    Split on vocab, each rank computes its columns (masked by their global
+    index) and the columns are gathered."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = hidden @ w.to(hidden.dtype)
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = NEG_INF
-    return logits
+    vs = shard_of("vocab", cfg.padded_vocab)
+    first_pad = cfg.vocab_size - vs.offset          # local index of the first padded column
+    if first_pad < vs.size:
+        logits[..., max(first_pad, 0):] = NEG_INF
+    return all_gather(logits, -1, vs)
 
 
 # ------------------------------------------------------------ layer loops
@@ -331,10 +352,13 @@ def _fill_cross_kv(cfg: ModelConfig, params: dict, cache: list, memory) -> list:
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: list,
-                tokens: torch.Tensor, cur_pos: torch.Tensor
-                ) -> Tuple[torch.Tensor, list]:
+                tokens: torch.Tensor, cur_pos: torch.Tensor,
+                seq_len: Optional[int] = None) -> Tuple[torch.Tensor, list]:
     """One decode step.  tokens: [B] int32; cur_pos: [B] absolute position
-    (all three M-RoPE components take it).
+    (all three M-RoPE components take it).  ``seq_len``: the contiguous
+    cache's global length (``init_cache``'s), given where the cache may be
+    split over the mesh by sequence (the decode cell); None: the cache is
+    whole.
 
     ``cache`` is contiguous ({k, v, pos}, plus an encoder-decoder's {xk,
     xv}) or paged ({k_pool, v_pool, table, len}); paged attention runs the
@@ -348,7 +372,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list,
         positions = cur_pos[:, None, None].expand(b, 3, 1)
     else:
         positions = cur_pos[:, None]
-    ctx = BlockCtx(mode="decode", positions=positions, cur_pos=cur_pos)
+    ctx = BlockCtx(mode="decode", positions=positions, cur_pos=cur_pos, seq_len=seq_len)
     new_caches = []
     for i, seg in enumerate(cfg.decoder_plan()):
         x, nc, _ = _run_segment(cfg, seg, params["segments"][i], x, ctx, cache[i])

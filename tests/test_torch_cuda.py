@@ -634,6 +634,42 @@ def test_flash_attention_unaligned_view_takes_the_generic_kernel(cuda, which):
     check_flash(got, flash_attention_ref(*args, num_heads=12), "bfloat16", 12)
 
 
+@pytest.mark.parametrize("variant,dtype", [("hopper", "bfloat16"), ("generic", "bfloat16"),
+                                           ("generic", "float32")])
+@pytest.mark.parametrize("b,h,nh,kvh,sq,sk,d,causal,window,ranks", [
+    (1, 16, 12, 2, 300, 300, 128, True, None, 2),   # qwen2-1.5b over 2: rank 1 4 real + 4 padded
+    (1, 32, 32, 8, 260, 260, 128, True, None, 4),   # llama3-8b over 4: whole KV groups
+    (1, 16, 9, 3, 130, 130, 64, True, None, 4),     # smollm-135m over 4: rank 3 padded only
+    (2, 8, 6, 2, 140, 140, 64, True, 16, 4),        # a KV group over 2 ranks, window; rank 3 padded
+    (2, 8, 8, 4, 100, 170, 128, False, None, 2),    # Sq != Sk, no mask
+])
+def test_flash_attention_head_offset_is_the_full_launch(cuda, variant, dtype, b, h, nh, kvh,
+                                                        sq, sk, d, causal, window, ranks):
+    """A tensor-parallel rank's heads (``head_offset``): bitwise those heads
+    of the launch over every head, and held to the plain version's heads;
+    a shard of padded heads only is zeros."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    q, k, v = flash_inputs(31, dtype, cuda, b, h, kvh, sq, sk, d)
+    kw = dict(causal=causal, window=window, num_heads=nh, variant=variant)
+    before = dict(flash_kernel.variant_counts)
+    full = flash_kernel.flash_attention(q, k, v, **kw)
+    per = h // ranks
+    for r in range(ranks):
+        qs = q[:, r * per:(r + 1) * per]
+        got = flash_kernel.flash_attention(qs, k, v, head_offset=r * per, **kw)
+        want = flash_attention_ref(qs, k, v, causal=causal, window=window, num_heads=nh,
+                                   head_offset=r * per)
+        torch.cuda.synchronize()
+        assert torch.equal(got, full[:, r * per:(r + 1) * per]), r
+        real = min(max(nh - r * per, 0), per)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        if real:
+            assert max_row_rel_err(got[:, :real], want[:, :real]) <= ROW_REL_TOL[dtype]
+        assert (got[:, real:] == 0).all()
+    assert flash_kernel.variant_counts[variant] - before[variant] == ranks + 1
+
+
 def test_flash_attention_hopper_is_deterministic(cuda):
     q, k, v = flash_inputs(24, "bfloat16", cuda, 1, 16, 2, 1100, 1100, 128)
     first = run_flash(q, k, v, "hopper", num_heads=12)
@@ -1047,3 +1083,39 @@ def test_nccl_compressed_all_reduce_is_the_dequantized_value(cuda, nccl):
     mean, new_err = compressed_all_reduce(x, nccl.get_group("data"), err)
     q, scale, want_err = quantize_int8(x, err)
     assert torch.equal(mean, q.float() * scale) and torch.equal(new_err, want_err)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3-8b"])
+def test_nccl_prefill_and_decode_cells_are_bitwise_the_model(cuda, nccl, arch):
+    """The tensor-parallel code path at world size 1: the prefill cell's
+    logits and cache and two decode-cell steps bitwise ``T.prefill`` /
+    ``T.decode_step`` (bf16 compute, the prefill on the kernel)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.interop import tree_flatten
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config(arch).replace(compute_dtype="bfloat16")
+    params = T.init_params(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)).to(cuda)
+    cells = {}
+    for kind in ("prefill", "decode"):
+        with use_mesh(nccl, rules_for(kind, cfg)):
+            cells[kind] = SP.build_cell(cfg, ShapeConfig(kind, 32, 2, kind), nccl)
+    logits, cache = cells["prefill"].fn(params, {"tokens": tokens})
+    want_cache = T.init_cache(cfg, 2, 32, device=cuda)
+    hidden, want_cache = T.prefill(cfg, params, {"tokens": tokens}, want_cache)
+    assert torch.equal(logits, T.lm_logits(cfg, params, hidden))
+    for a, b in zip(tree_flatten(cache)[0], tree_flatten(want_cache)[0]):
+        assert torch.equal(a, b)
+    want_logits = logits
+    for step in range(2):
+        nxt = want_logits.argmax(-1).to(torch.int32)
+        cur = torch.full_like(nxt, 24 + step)
+        logits, cache = cells["decode"].fn(params, cache, nxt, cur)
+        want_logits, want_cache = T.decode_step(cfg, params, want_cache, nxt, cur)
+        assert torch.equal(logits, want_logits)
