@@ -256,6 +256,29 @@ Phases, each printing one JSON line:
             token within 3e-2 of (b)'s top logit, each rank's 28 launches
             hopper at its own head offset (0, 8).  (c)'s times are gloo's,
             which stages every collective through the host.
+13. tensor_parallel_train  the train cell tensor-parallel over ``model``
+            (``TPT_*``): full-width qwen2-1.5b (12 heads padded to 16 over 2
+            KV heads, D 128, tied vocab 151936; fp32 params, bf16 compute,
+            remat "full") at 14 of its 28 layers (two whole training states
+            must fit the card in (a)), random weights from seed 0 made on
+            the card, batch 1 x 2048 of numpy seed 0 tokens, 3 AdamW steps.
+            (a) In a process of its own, under NCCL at world size 1
+            (``make_host_mesh(model=1)``): the cell and ``train_step`` a
+            step each in turns, params, m and v bitwise equal after every
+            step, step ms of both, peak memory.
+            (b) The same cell over 2 gloo ranks (spawned processes, a file
+            store under build/) sharing the one card, a (1, 2) mesh: heads
+            8 + 8 (rank 1: 4 real, 4 padded), one KV head a rank, ffn and
+            vocab split, from (a)'s weights and batches: each step's loss
+            within 1e-2 (relative) of (a)'s, the grad norm within 2e-2, each
+            rank's m after step 1 within 5e-2 of (a)'s slice at that rank
+            (per leaf, relative to its norm), the replicated leaves (the
+            norms, their moments) bitwise equal across the ranks; step ms,
+            the collectives a step (calls and bytes, over groups of more
+            than one rank) and the peak memory of each rank.  Counts zeroed
+            just before the steps and read just after: no kernel of the
+            port launches in training, flash_attention (no backward kernel)
+            included.  (b)'s times are gloo's, staged through the host.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
@@ -266,7 +289,8 @@ phase 9's and phase 10's launches by model, and for paged_attention and
 flash_attention its phase-2 cases at phase 9's and phase 10's shapes with the
 launches of the model each stands for; for flash_attention also phase 10's
 launches by variant and by mask and the prefills that took the plain
-route, and phase 12 (a)'s cases with (c)'s launches), the card's
+route, and phase 12 (a)'s cases with (c)'s launches; phase 13's launches,
+zero), the card's
 name and power limit from nvidia-smi, and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises before that line (non-zero exit).  Without a
 CUDA card, or without the rest of the repository beside it, it exits
@@ -443,6 +467,31 @@ TP_PREFILL = DIST_PREFILL
 TP_DECODE_STEPS = 16
 TP_RANKS = 2
 TP_LOGITS_ROW_TOL = 3e-2
+# phase 13: the train cell tensor-parallel over "model": full-width
+# qwen2-1.5b (12 heads padded to 16 over 2 KV heads, D 128, d_ff 8960, tied
+# vocab 151936; fp32 params, bf16 compute, remat "full", attention chunks
+# of 512) at 14 of its 28 layers, batch 1 x 2048 (numpy seed 0 tokens), 3
+# AdamW steps.  The bytes: 14 layers x 48.4 M + the 233.4 M embedding =
+# 0.911 G parameters, 3.64 GB in fp32 and 7.29 GB of moments.  (a) holds
+# the cell's state and train_step's (21.9 GB) and train_step's update
+# transients (gradients, clipped copies, new moments and params: ~18 GB),
+# the activations under remat (14 layer inputs of 6.3 MB in bf16, one
+# layer's recompute ~0.3 GB, the loss's fp32 logits of 2 chunks x 1024 x
+# 151936 kept for the backward, 1.24 GB, and their temporaries): ~45 GB of
+# the 80; all 28 layers would need ~80 GB.  (b) each of 2 ranks about half
+# the state (the norms whole) and its half of the vocabulary's logits:
+# ~13 GB a rank.  Held: (b)'s losses within 1e-2 (relative) of (a)'s, its
+# grad norms within 2e-2, each rank's m shard after step 1 within 5e-2 of
+# (a)'s slice at that rank (relative to the norm, per leaf): bf16 compute,
+# the ranks' partial products summed in fp32
+TPT_LAYERS = 14
+TPT_BATCH, TPT_SEQ = 1, 2048
+TPT_STEPS = 3
+TPT_RANKS = 2
+TPT_LR = 3e-4
+TPT_LOSS_REL_TOL = 1e-2
+TPT_GNORM_REL_TOL = 2e-2
+TPT_M_REL_TOL = 5e-2
 # phase 10: the rest of the zoo at full width, nothing cut (bf16, random
 # weights from seed 0 made on the card).  xlstm-1.3b through ServeEngine:
 # its prompts x ZOO_NEW_TOKENS, batch 4; the fp32 check at 8 of 48 blocks
@@ -3226,6 +3275,300 @@ def phase_tensor_parallel(torch, K, FK, prefill_logits):
     return one["launches"], out["head_offset"], [rep["launches"] for rep in ranks]
 
 
+# ----------------------------------------------------------------- phase 13
+
+
+def card_name_power() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def tpt_setup(torch, mesh):
+    """Phase 13's config, its train cell on ``mesh`` and the batches."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg = get_config("qwen2-1.5b").replace(num_layers=TPT_LAYERS)
+    tcfg = TrainConfig(optimizer=AdamWConfig(learning_rate=TPT_LR, warmup_steps=1))
+    with use_mesh(mesh, rules_for("train", cfg)):
+        cell = SP.build_cell(cfg, ShapeConfig("train_tp", TPT_SEQ, TPT_BATCH, "train"), mesh,
+                             tcfg)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(TPT_STEPS):
+        t = rng.integers(0, cfg.vocab_size, (TPT_BATCH, TPT_SEQ + 1),
+                         dtype=np.int64).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return cfg, tcfg, cell, batches
+
+
+def tpt_local(torch, cell, mesh, full):
+    """This rank's param shards of the whole ``full`` and its ZeRO-1 moments
+    (zeros of the shard's shape: no whole-size moments are made)."""
+    from repro_torch.interop import tree_map
+    from repro_torch.launch import specs as SP
+    from repro_torch.models.common import is_tuple
+    from repro_torch.distributed.sharding import shard_slices
+    from repro_torch.train.optimizer import AdamWState
+
+    def zeros():
+        return tree_map(lambda t, s: torch.zeros_like(t[shard_slices(s, t.shape, mesh)],
+                                                      dtype=torch.float32),
+                        full, cell.in_specs[1].m, is_leaf=is_tuple)
+
+    step = torch.zeros((), dtype=torch.int32, device="cuda")
+    return SP.local_tree(full, cell.in_specs[0], mesh), AdamWState(step, zeros(), zeros())
+
+
+def tpt_batch(torch, cell, mesh, batch):
+    from repro_torch.interop import from_numpy
+    from repro_torch.launch import specs as SP
+
+    b = {k: from_numpy(v, "cuda") for k, v in batch.items()}
+    return SP.local_tree(b, {k: cell.in_specs[2][k] for k in b}, mesh)
+
+
+def tpt_process(torch):
+    """A spawned process of phase 13 on the card, set as ``main`` sets the
+    script's; returns the kernels module (its launch counts)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels as K
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return K
+
+
+def tpt_single(_rank, store, work):
+    """(a) in a process of its own: the TP train cell under NCCL at world
+    size 1 (a (1, 1) mesh) against ``train_step``, a step of each in turns,
+    params, m and v bitwise after every step; writes its report and (a)'s m
+    after step 1 sliced as each of (b)'s ranks holds it."""
+    import torch
+    import torch.distributed as dist
+
+    K = tpt_process(torch)
+    from repro_torch.distributed.sharding import MeshSpec, shard_slices, use_mesh
+    from repro_torch.interop import tree_flatten
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh, rules_for
+    from repro_torch.models.common import is_tuple
+    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.train_step import train_step
+
+    work = Path(work)
+    init_process_group("cuda", f"file://{store}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh("cuda", model=1)
+        cfg, tcfg, cell, batches = tpt_setup(torch, mesh)
+        full = device_params(torch, cfg, torch.float32)
+        n_params = sum(t.numel() for t in tree_flatten(full)[0])
+        run = dict(zip(("params", "state"), tpt_local(torch, cell, mesh, full)))
+        ref = {"params": full, "state": init_state(full)}
+        del full
+        ranks_mesh = MeshSpec(("data", "model"), (1, TPT_RANKS))
+        with use_mesh(ranks_mesh, rules_for("train", cfg)):
+            m_specs = tree_flatten(SP.opt_pspecs(cfg, ranks_mesh).m, is_tuple)[0]
+        losses = {"train_step": [], "cell": []}
+        norms = {"train_step": [], "cell": []}
+        ms = {"train_step": [], "cell": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        for i, batch in enumerate(batches):
+            feed = tpt_batch(torch, cell, mesh, batch)
+            for name in (("train_step", "cell") if i % 2 == 0 else ("cell", "train_step")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "cell":
+                    run["params"], run["state"], m = cell.fn(run["params"], run["state"], feed)
+                else:
+                    ref["params"], ref["state"], m = train_step(cfg, tcfg, ref["params"],
+                                                                ref["state"], feed)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+                losses[name].append(m["loss"].item())
+                norms[name].append(m["grad_norm"].item())
+            for what in ("params", "m", "v"):
+                a = run["params"] if what == "params" else getattr(run["state"], what)
+                b = ref["params"] if what == "params" else getattr(ref["state"], what)
+                check(all(torch.equal(x, y) for x, y in zip(tree_flatten(a)[0],
+                                                            tree_flatten(b)[0])),
+                      f"tensor_parallel_train (a): {what} after step {i + 1} not bitwise "
+                      "train_step's")
+            if i == 0:
+                m1 = tree_flatten(run["state"].m)[0]
+                for r in range(TPT_RANKS):
+                    torch.save([t[shard_slices(s, t.shape, ranks_mesh, (0, r))].cpu()
+                                for t, s in zip(m1, m_specs)], work / f"m1_rank{r}.pt")
+                del m1
+        launches = dict(K.launch_counts)
+        check(losses["cell"] == losses["train_step"] and norms["cell"] == norms["train_step"],
+              f"tensor_parallel_train (a): losses {losses}, grad norms {norms}")
+        check(launches["flash_attention"] == 0,
+              f"tensor_parallel_train (a): flash_attention launched {launches}")
+        report = {"arch": cfg.name, "layers": cfg.num_layers, "of_layers": 28,
+                  "params": n_params, "batch": TPT_BATCH, "seq": TPT_SEQ, "steps": TPT_STEPS,
+                  "losses": losses["cell"], "grad_norms": norms["cell"], "step_ms": ms,
+                  "bitwise_equal_train_step": True, "launches": launches,
+                  "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                  "note": "the first pair warms both paths; (a) holds both training states"}
+        (work / "single.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def tpt_rank(rank, world, store, work):
+    """(b) one of ``world`` gloo ranks sharing the one card: the TP train
+    cell on a (1, world) ``(data, model)`` mesh from (a)'s weights (seed 0
+    on the card) and batches; writes its report, its replicated leaves and
+    its m after step 1 held to (a)'s slice (on the host)."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+    from torch.distributed.device_mesh import init_device_mesh
+
+    K = tpt_process(torch)
+    from repro_torch.interop import tree_flatten
+    from repro_torch.models.common import is_tuple
+
+    work = Path(work)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                            timeout=timedelta(seconds=300))
+    try:
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        cfg, tcfg, cell, batches = tpt_setup(torch, mesh)
+        full = device_params(torch, cfg, torch.float32)
+        params, state = tpt_local(torch, cell, mesh, full)
+        del full
+        torch.cuda.empty_cache()
+        calls = {}
+
+        def counted(op):
+            def wrap(fn):
+                def inner(*args, group=None, **kw):
+                    if dist.get_world_size(group) > 1:
+                        t = args[1] if op == "all_gather" else args[0]
+                        c = calls.setdefault(op, {"calls": 0, "bytes": 0})
+                        c["calls"] += 1
+                        c["bytes"] += t.numel() * t.element_size()
+                    return fn(*args, group=group, **kw)
+                return inner
+            return Patched(dist, op, wrap)
+
+        losses, norms, step_ms, m1_err = [], [], [], {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        with counted("all_reduce"), counted("all_gather"):
+            for i, batch in enumerate(batches):
+                feed = tpt_batch(torch, cell, mesh, batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = cell.fn(params, state, feed)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(m["loss"].item())
+                norms.append(m["grad_norm"].item())
+                if i == 0:
+                    want = torch.load(work / f"m1_rank{rank}.pt")
+                    for j, (got, w) in enumerate(zip(tree_flatten(state.m)[0], want)):
+                        check(got.shape == w.shape, f"tensor_parallel_train (b): m{j} shape")
+                        m1_err[j] = ((got.cpu() - w).norm() / w.norm().clamp_min(1e-30)).item()
+                    del want
+        peak = torch.cuda.max_memory_allocated()
+        split = [any(e is not None for e in s)
+                 for s in tree_flatten(cell.in_specs[0], is_tuple)[0]]
+        torch.save({name: [t.cpu() for t, sp in zip(tree_flatten(tree)[0], split) if not sp]
+                    for name, tree in (("params", params), ("m", state.m), ("v", state.v))},
+                   work / f"replicated_rank{rank}.pt")
+        worst = max(m1_err, key=m1_err.get)
+        report = {"rank": rank, "coordinate": list(mesh.get_coordinate()), "losses": losses,
+                  "grad_norms": norms, "step_ms": step_ms,
+                  "collectives_per_step": {op: {k: v / TPT_STEPS for k, v in c.items()}
+                                           for op, c in calls.items()},
+                  "m_step1_max_rel_err": m1_err[worst], "m_step1_worst_leaf": worst,
+                  "launches": dict(K.launch_counts), "peak_memory_bytes": peak,
+                  "replicated_leaves": len(split) - sum(split), "split_leaves": sum(split)}
+        (work / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tensor_parallel_train(torch):
+    """Phase 13: the train cell tensor-parallel over ``model`` on full-width
+    qwen2-1.5b at TPT_LAYERS layers, each part in processes of its own (the
+    card holds what earlier phases left in this one).  (a) Under NCCL at
+    world size 1, bitwise ``train_step``; (b) over TPT_RANKS gloo ranks
+    sharing the one card (a (1, 2) mesh: heads 8 + 8 — rank 1 holds 4 real
+    heads and 4 padded —, one KV head a rank, ffn and vocab split), held to
+    (a).  (b)'s times are gloo's: every collective stages through the host.
+    No flash_attention (no backward kernel) on either.  Returns the launches
+    of (a) and of each rank."""
+    import gc
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "dist" / "tp_train"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"card": card_name_power(),
+           "script_process_bytes": {"allocated": torch.cuda.memory_allocated(),
+                                    "reserved": torch.cuda.memory_reserved()}}
+    for name in ("nccl_store", "gloo_store"):
+        (work / name).unlink(missing_ok=True)
+    mp.start_processes(tpt_single, args=(str(work / "nccl_store"), str(work)), nprocs=1,
+                       start_method="spawn", join=True)
+    one = out["world_size_1"] = json.loads((work / "single.json").read_text())
+
+    t0 = time.perf_counter()
+    mp.start_processes(tpt_rank, args=(TPT_RANKS, str(work / "gloo_store"), str(work)),
+                       nprocs=TPT_RANKS, start_method="spawn", join=True)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TPT_RANKS)]
+    for rep in ranks:
+        r = rep["rank"]
+        loss_err = max(abs(a / b - 1) for a, b in zip(rep["losses"], one["losses"]))
+        norm_err = max(abs(a / b - 1) for a, b in zip(rep["grad_norms"], one["grad_norms"]))
+        rep.update(loss_rel_err=loss_err, grad_norm_rel_err=norm_err)
+        check(loss_err <= TPT_LOSS_REL_TOL,
+              f"tensor_parallel_train (b) rank {r}: losses {rep['losses']} vs {one['losses']}")
+        check(norm_err <= TPT_GNORM_REL_TOL,
+              f"tensor_parallel_train (b) rank {r}: grad norms {rep['grad_norms']} vs "
+              f"{one['grad_norms']}")
+        check(rep["m_step1_max_rel_err"] <= TPT_M_REL_TOL,
+              f"tensor_parallel_train (b) rank {r}: m after step 1 "
+              f"{rep['m_step1_max_rel_err']} off (a)'s at leaf {rep['m_step1_worst_leaf']}")
+        check(rep["launches"]["flash_attention"] == 0,
+              f"tensor_parallel_train (b) rank {r}: flash_attention launched")
+        check(rep["losses"] == ranks[0]["losses"],
+              f"tensor_parallel_train (b): ranks' losses differ {rep['losses']}")
+    rep0, rep1 = (torch.load(work / f"replicated_rank{r}.pt") for r in range(TPT_RANKS))
+    check(all(torch.equal(a, b) for k in rep0 for a, b in zip(rep0[k], rep1[k]))
+          and ranks[0]["replicated_leaves"] > 0,
+          "tensor_parallel_train (b): replicated leaves differ across ranks")
+    out["gloo_ranks"] = {"ranks": ranks, "wall_s": wall, "replicated_leaves_bitwise": True,
+                         "note": "gloo stages every collective through the host: these "
+                                 "times are not NVLink's; collectives counted over groups "
+                                 "of more than one rank"}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "tensor_parallel_train", **out})
+    return one["launches"], [rep["launches"] for rep in ranks]
+
+
 def main() -> int:
     import torch
 
@@ -3346,6 +3689,11 @@ def main() -> int:
     tp_launches, tp_cases, tp_rank_launches = phase_tensor_parallel(torch, K, FK, dist_logits)
     del dist_logits
 
+    # 13. the train cell tensor-parallel: full-width qwen2-1.5b (14 of 28
+    # layers) at world size 1 (NCCL, bitwise train_step) and over 2 gloo
+    # ranks sharing the one card
+    tpt_launches, tpt_rank_launches = phase_tensor_parallel_train(torch)
+
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
     rows = []
@@ -3363,7 +3711,10 @@ def main() -> int:
                                     "distributed": dist_launches[name],
                                     "tensor_parallel": tp_launches[name],
                                     "tensor_parallel_gloo_ranks": [
-                                        n[name] for n in tp_rank_launches]},
+                                        n[name] for n in tp_rank_launches],
+                                    "tensor_parallel_train": {
+                                        "world_size_1": tpt_launches[name],
+                                        "gloo_ranks": [n[name] for n in tpt_rank_launches]}},
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
@@ -3420,10 +3771,7 @@ def main() -> int:
                 "case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "variant_ms")}
         rows.append(row)
     emit({"kernels": rows})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_name_power(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,24 +1,38 @@
 """Tensor parallelism for the model code: a rank's shard of a logical axis,
-and the collectives that put the shards back together.
+and the collectives that put the shards back together, forward and
+backward.
 
 The reference lowers its ``with_logical_constraint`` sites into collectives
-through GSPMD.  The port runs the model on plain local tensors (the CUDA
-kernels take plain tensors) and names the collectives itself, at those
-sites:
+through GSPMD, which also partitions their backward.  The port runs the
+model on plain local tensors (the CUDA kernels take plain tensors) and
+names the collectives itself, at those sites:
 
 * :func:`shard_of` — the ``(offset, size)`` of this rank's slice of a
   dimension of ``total`` elements on logical axis ``logical``, under the
   active mesh and rules (``sharding.use_mesh``): the slice that
   ``logical_pspec`` / ``shard_slices`` give its parameters.
 * :func:`all_reduce_sum`, :func:`all_reduce_max`, :func:`all_gather` over
-  the mesh axis that a :class:`Shard` is split on.
+  the mesh axis that a :class:`Shard` is split on, and
+  :func:`to_local_region`, which moves nothing forward.
 
-Where no ``DeviceMesh`` is active, or the axis is not split (a rule that
-maps it to nothing, or a size its mesh axes do not divide), the shard is the
-whole dimension and every collective returns its input: the single-device
-paths run exactly the code they ran before.  The calls are the plain
-``torch.distributed`` ones (no autograd: the cells that use them are
-inference only).
+The gradients follow one rule.  A tensor is *replicated* over the axis (the
+same value on every rank, and its gradient the same whole gradient on
+every rank) or *sharded / partial* (each rank holds a slice, or a summand
+of the value).  So:
+
+* ``all_reduce_sum`` (partial -> replicated): backward is the identity;
+* ``all_gather`` (sharded -> replicated): backward takes this rank's slice;
+* ``to_local_region`` (replicated -> rank-local work): identity forward,
+  backward the sum of the ranks' partial gradients.  It goes wherever a
+  replicated tensor enters work that each rank does on its own shard: the
+  input of a column-split weight, KV gathered for a rank's own heads.
+
+Where no ``DeviceMesh`` is active, or the axis is not split (a rule that maps it to
+nothing, or a size its mesh axes do not divide), the shard is the whole
+dimension and every op returns its input itself, forward and backward: the
+single-device paths run exactly the code they ran before.  The group of a
+collective is taken when its forward runs, so a backward may run on another
+thread (autograd's device thread) than the mesh was activated on.
 """
 
 from __future__ import annotations
@@ -63,10 +77,18 @@ def shard_of(logical: str, total: int) -> Shard:
         return whole
     if len(axes) > 1:
         raise NotImplementedError(f"tensor-parallel {logical!r} over several mesh axes {axes}")
-    axis = axes[0]
+    return axis_shard(axes[0], total)
+
+
+def axis_shard(axis: str, total: Optional[int] = None) -> Shard:
+    """This rank's shard of a ``total``-long dimension split evenly over
+    mesh axis ``axis`` of the active mesh (``total`` defaults to the axis's
+    size: one element a rank)."""
+    mesh = active_mesh()
     parts = mesh.size(mesh.mesh_dim_names.index(axis))
+    total = parts if total is None else total
     if parts == 1:
-        return whole
+        return Shard(0, total, total)
     size = total // parts
     return Shard(mesh.get_local_rank(axis) * size, size, total, axis, parts)
 
@@ -75,19 +97,70 @@ def _group(shard: Shard):
     return active_mesh().get_group(shard.axis)
 
 
-def all_reduce_sum(t: torch.Tensor, shard: Shard) -> torch.Tensor:
-    """The sum over the ranks of ``shard``'s axis, in fp32 at least: bf16 /
-    fp16 partial products are widened, summed and rounded once (in place
-    on ``t`` where it is fp32)."""
-    if not shard.split:
-        return t
-    wide = t.float()
-    dist.all_reduce(wide, op=dist.ReduceOp.SUM, group=_group(shard))
+def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` in fp32 at least (bf16 / fp16 partials are
+    widened, summed and rounded once), into a new tensor: the input may be
+    saved for a backward."""
+    wide = t.clone() if t.dtype == torch.float32 else t.float()
+    dist.all_reduce(wide, op=dist.ReduceOp.SUM, group=group)
     return wide.to(t.dtype)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Partial -> replicated: the sum forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _sum_over(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Sharded -> replicated: the ranks' tensors concatenated along ``dim``
+    forward, this rank's slice of the (replicated) gradient backward."""
+
+    @staticmethod
+    def forward(ctx, t, dim, shard, group):
+        ctx.dim, ctx.index, ctx.size = dim, shard.offset // shard.size, t.shape[dim]
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(shard.parts)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None, None
+
+
+class _ToLocalRegion(torch.autograd.Function):
+    """Replicated -> rank-local work: the identity forward, the sum of the
+    ranks' partial gradients backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.group), None
+
+
+def all_reduce_sum(t: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """The sum over the ranks of ``shard``'s axis, in fp32 at least: bf16 /
+    fp16 partial products are widened, summed and rounded once.  Backward:
+    the identity."""
+    if not shard.split:
+        return t
+    return _AllReduceSum.apply(t, _group(shard))
+
+
 def all_reduce_max(t: torch.Tensor, shard: Shard) -> torch.Tensor:
-    """The elementwise max over the ranks of ``shard``'s axis (in place)."""
+    """The elementwise max over the ranks of ``shard``'s axis (in place; no
+    gradient)."""
     if shard.split:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_group(shard))
     return t
@@ -95,10 +168,16 @@ def all_reduce_max(t: torch.Tensor, shard: Shard) -> torch.Tensor:
 
 def all_gather(t: torch.Tensor, dim: int, shard: Shard) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim`` in rank order: the
-    whole dimension from its shards."""
+    whole dimension from its shards.  Backward: this rank's slice."""
     if not shard.split:
         return t
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(shard.parts)]
-    dist.all_gather(parts, t, group=_group(shard))
-    return torch.cat(parts, dim=dim)
+    return _AllGather.apply(t, dim, shard, _group(shard))
+
+
+def to_local_region(t: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """``t``, replicated over ``shard``'s axis, entering work each rank does
+    on its own shard: the identity forward; backward, the ranks' partial
+    gradients summed."""
+    if not shard.split:
+        return t
+    return _ToLocalRegion.apply(t, _group(shard))

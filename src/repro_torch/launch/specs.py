@@ -13,15 +13,22 @@ every output under the cell's specs; the cell reduces what crosses ranks
 itself:
 
 * train: data parallel over the batch's mesh axes with ZeRO-1 AdamW
-  moments.  Each rank's gradients are weighted by its share of the loss
-  tokens and summed, so the result is the gradient of the global mean loss
-  (as GSPMD computes it), not the mean of shard means.  ``global_norm`` and
-  the clip see the whole reduced gradient; each rank then runs
-  ``adamw_elementwise`` on its ZeRO-1 slice of params, gradients and
-  moments and gathers the updated params.  The arithmetic per element is
-  ``apply_update``'s, so at world size 1 the step is bitwise
+  moments and, over ``model`` > 1, tensor parallel for the dense decoders
+  (the weights split as for prefill; the loss's vocabulary split too,
+  ``train/loss.py``).  Each rank runs ``step_grads`` on its parameter
+  shards under the mesh and the rules the cell was built with: the
+  reference's sharding constraints are collectives whose backward is the
+  one GSPMD derives (``distributed/tensor_parallel.py``).  Each rank's
+  gradients are weighted by its share of the loss tokens and summed over
+  the batch's axes, so the result is the gradient of the global mean loss
+  (as GSPMD computes it), not the mean of shard means.  ``global_norm``
+  sums the squares of each ``model``-split leaf over ``model`` and counts
+  each replicated leaf once, so the clip sees the whole gradient; each rank
+  then runs ``adamw_elementwise`` on its ZeRO-1 slice of its param shard,
+  gradients and moments, and gathers the updated slices over the batch's
+  axes, back to its shard under the param specs.  The arithmetic per
+  element is ``apply_update``'s, so at world size 1 the step is bitwise
   ``train_step``'s.
-  The train cell is data parallel only: its params are replicated.
 * prefill / decode: ``T.prefill`` / ``T.decode_step`` under the mesh and
   the rules the cell was built with.  Over ``model`` > 1 the dense
   decoders run tensor-parallel on their parameter shards (heads, KV heads,
@@ -32,9 +39,9 @@ itself:
   by KV heads where the rules split them, the decode's by sequence).
 
 What is not ported raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item (:func:`_require_executable`): the train cell, and the prefill and
-decode cells of the other families, over a mesh axis of size > 1 that a
-parameter or cache spec names.
+item (:func:`_require_executable`): every cell of the other families (MoE,
+hymba, xLSTM, M-RoPE, encoder-decoder) over a mesh axis of size > 1 that a
+parameter or cache spec names, and a decode cache split by KV heads.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from .. import torch_dtype
 from ..configs.base import ModelConfig, ShapeConfig
 from ..distributed.sharding import (active_rules, entry_axes, gather_shard, is_device_mesh,
                                     logical_pspec, mesh_spec, shard_slices, use_mesh)
+from ..distributed.tensor_parallel import axis_shard
 from ..interop import tree_flatten, tree_map, tree_unflatten
 from ..models import transformer as T
 from ..models.common import is_tuple, shapes_tree
@@ -204,20 +212,34 @@ def local_tree(tree, specs, mesh, coord=None):
                     tree, specs, is_leaf=is_tuple)
 
 
+def batch_part(o_spec: tuple, p_spec: tuple) -> tuple:
+    """A ZeRO-1 moment spec's batch-axis entries alone: the entries that the
+    param spec also has (``zero1_pspec`` adds batch axes on dims the param
+    spec leaves whole) dropped.  It splits a rank's param shard into the
+    ZeRO-1 slices of the ranks that share that shard."""
+    p_spec = tuple(p_spec) + (None,) * (len(o_spec) - len(p_spec))
+    return tuple(e if pe is None else None for e, pe in zip(o_spec, p_spec))
+
+
 def zero1_local_update(ocfg: AdamWConfig, params, grads, opt_local: AdamWState,
-                       o_specs: AdamWState, scalars, mesh, coord=None):
+                       o_specs: AdamWState, scalars, mesh, coord=None, p_specs=None):
     """One AdamW update of the ZeRO-1 shard at ``coord`` (this rank's by
-    default): ``(new param shards, new local state)``.  ``params`` and
-    ``grads`` are whole (the gradients reduced), ``opt_local`` holds this
-    shard's moments, and ``scalars`` is ``update_scalars`` of the whole
-    gradient's norm, so each element's result is ``apply_update``'s."""
+    default): ``(new param slices, new local state)``.  ``params`` and
+    ``grads`` are this rank's shards under ``p_specs`` (default: whole, the
+    gradients reduced), ``opt_local`` holds this shard's moments, and
+    ``scalars`` is ``update_scalars`` of the whole gradient's norm, so each
+    element's result is ``apply_update``'s.  Each leaf's slice is the batch
+    part (:func:`batch_part`) of its moment spec, taken of the param
+    shard."""
     p_leaves, treedef = tree_flatten(params)
     g_leaves = tree_flatten(grads)[0]
     specs = tree_flatten(o_specs.m, is_tuple)[0]
+    bases = (tree_flatten(p_specs, is_tuple)[0] if p_specs is not None
+             else [()] * len(specs))
     m_leaves, v_leaves = tree_flatten(opt_local.m)[0], tree_flatten(opt_local.v)[0]
     new_p, new_m, new_v = [], [], []
-    for p, g, s, m, v in zip(p_leaves, g_leaves, specs, m_leaves, v_leaves):
-        sl = shard_slices(s, p.shape, mesh, coord)
+    for p, g, s, base, m, v in zip(p_leaves, g_leaves, specs, bases, m_leaves, v_leaves):
+        sl = shard_slices(batch_part(s, base), p.shape, mesh, coord)
         p_l, m_l, v_l = adamw_elementwise(ocfg, p[sl].float(), g[sl].float(), m, v, *scalars)
         new_p.append(p_l.to(p.dtype))
         new_m.append(m_l)
@@ -258,7 +280,6 @@ TP_TODO = {
     "mrope": ("qwen2-vl's M-RoPE embeddings path", "Queue 1 item 2 (e)"),
     "encdec": ("the encoder-decoder's cross-attention", "Queue 1 item 2 (f)"),
 }
-TP_TRAIN_TODO = "Queue 1 item 2 (a)"
 TP_HEAD_CACHE_TODO = "Queue 1 item 2 (g)"     # a decode cache split by KV heads
 
 
@@ -289,22 +310,29 @@ def _split_axes(mesh, specs) -> list:
 def _require_executable(cfg: ModelConfig, kind: str, mesh, specs) -> None:
     """Raise where the cell cannot run on ``mesh``: a MeshSpec (accounting
     only), or ``specs`` (params and the cache's non-batch dims) split over
-    an axis of size > 1 for the train cell or a family not yet ported."""
+    an axis of size > 1 for a family not yet ported."""
     if not is_device_mesh(mesh):
         raise TypeError("a cell executes on a DeviceMesh; a MeshSpec only accounts")
     big = _split_axes(mesh, specs)
-    if not big:
-        return
-    if kind == "train":
-        raise NotImplementedError(
-            f"the train cell of {cfg.name} over {big}: tensor-parallel training is not "
-            f"ported (ROADMAP.md, {TP_TRAIN_TODO})")
     family = _family(cfg)
-    if family is not None:
+    if big and family is not None:
         what, item = TP_TODO[family]
         raise NotImplementedError(
             f"the {kind} cell of {cfg.name} over {big}: tensor-parallel {what} is not "
             f"ported (ROADMAP.md, {item})")
+
+
+def _leaf_shards(p_specs, mesh) -> list:
+    """Per param leaf (tree order), this rank's ``Shard`` of the mesh axis
+    its spec splits (None: replicated), for ``global_norm``."""
+    sizes = mesh_spec(mesh).sizes
+    out = []
+    for spec in tree_flatten(p_specs, is_tuple)[0]:
+        axes = [a for e in spec for a in entry_axes(e) if sizes[a] > 1]
+        if len(axes) > 1:
+            raise NotImplementedError(f"a parameter split over several mesh axes {axes}")
+        out.append(axis_shard(axes[0]) if axes else None)
+    return out
 
 
 def _unbatched(c_specs) -> list:
@@ -313,7 +341,7 @@ def _unbatched(c_specs) -> list:
     return [{k: s[:1] + (None,) + s[2:] for k, s in seg.items()} for seg in c_specs]
 
 
-def _train_fn(cfg, tcfg, mesh, p_specs, o_specs, b_specs, params, opt_state, batch):
+def _train_fn(cfg, tcfg, mesh, rules, p_specs, o_specs, b_specs, params, opt_state, batch):
     _require_executable(cfg, "train", mesh, (p_specs,))
     groups = [mesh.get_group(a) for a in entry_axes(b_specs["labels"][0])]
     labels, mask = batch["labels"], batch.get("loss_mask")
@@ -322,16 +350,19 @@ def _train_fn(cfg, tcfg, mesh, p_specs, o_specs, b_specs, params, opt_state, bat
     n_total = _all_reduce(n_local.clone(), groups)
     w = n_local / torch.clamp(n_total, min=1.0)     # this shard's share of the loss
 
-    metrics, grads = step_grads(cfg, tcfg, params, batch)
-    grads = tree_map(lambda g: _all_reduce(g.float() * w, groups), grads)
-    metrics = {k: _all_reduce(v.float() * w, groups) for k, v in metrics.items()
-               if k != "tokens"}
-    gnorm = global_norm(grads)
+    with use_mesh(mesh, rules):
+        metrics, grads = step_grads(cfg, tcfg, params, batch)
+        # in place on fp32 gradients (step_grads' own tensors): the same bits
+        # as g * w without a second copy of the gradient tree
+        grads = tree_map(lambda g: _all_reduce(g.float().mul_(w), groups), grads)
+        metrics = {k: _all_reduce(v.float() * w, groups) for k, v in metrics.items()
+                   if k != "tokens"}
+        gnorm = global_norm(grads, _leaf_shards(p_specs, mesh))
     scalars = update_scalars(tcfg.optimizer, opt_state.step, gnorm)
     p_local, opt_state = zero1_local_update(tcfg.optimizer, params, grads, opt_state,
-                                            o_specs, scalars, mesh)
-    params = tree_map(lambda p, s: gather_shard(p, s, mesh), p_local, o_specs.m,
-                      is_leaf=is_tuple)
+                                            o_specs, scalars, mesh, p_specs=p_specs)
+    params = tree_map(lambda p, s, base: gather_shard(p, batch_part(s, base), mesh),
+                      p_local, o_specs.m, p_specs, is_leaf=is_tuple)
     metrics.update(tokens=n_total, grad_norm=gnorm, lr=scalars[1])
     return params, opt_state, metrics
 
@@ -367,7 +398,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                tcfg: Optional[TrainConfig] = None) -> Cell:
     """The cell's callable, meta arguments and outputs, and specs, under the
     active rules (``use_mesh(mesh, rules_for(shape.kind, cfg))``), which
-    the prefill and decode callables run under."""
+    the callables run under."""
     rules = active_rules()
     p_specs = param_pspecs(cfg, mesh)
     a_params = abstract_params(cfg)
@@ -378,7 +409,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         tcfg = tcfg or TrainConfig()
         o_specs = opt_pspecs(cfg, mesh)
         a_opt = abstract_opt_state(cfg)
-        fn = partial(_train_fn, cfg, tcfg, mesh, p_specs, o_specs, b_specs)
+        fn = partial(_train_fn, cfg, tcfg, mesh, rules, p_specs, o_specs, b_specs)
         return Cell(fn, (a_params, a_opt, a_batch), (p_specs, o_specs, b_specs),
                     (a_params, a_opt), (p_specs, o_specs))
 

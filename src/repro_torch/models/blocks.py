@@ -28,18 +28,21 @@ and the kernel reads only the last ``window``);
 :func:`_gather_paged` (gather pages, then plain ``decode_attention``) stays
 as the oracle the tests hold that path to.
 
-Under an active ``DeviceMesh`` (the prefill and decode cells) ``p`` holds
-this rank's shards, split as ``launch/specs.param_pspecs`` says, and the
-reference's sharding constraints are explicit collectives
-(``distributed/tensor_parallel.py``):
+Under an active ``DeviceMesh`` (the train, prefill and decode cells) ``p``
+holds this rank's shards, split as ``launch/specs.param_pspecs`` says, and
+the reference's sharding constraints are explicit collectives, with the
+backward GSPMD gives them (``distributed/tensor_parallel.py``):
 
 * attention: ``wq`` / ``bq`` are column shards over ``padded_heads·D``,
   ``wk`` / ``wv`` / ``bk`` / ``bv`` over ``KV·D`` (a shard may cut a KV
   head, so K and V are gathered to whole KV heads), ``wo`` a row shard.  A
   prefill on the kernel route attends this rank's own heads where its
-  columns are whole heads (``flash_attention``'s ``head_offset``); elsewhere
+  columns are whole heads (``flash_attention``'s ``head_offset``), and so
+  does training (the plain attention over those heads' KV map); elsewhere
   q is gathered to every head.  Each rank multiplies the columns of ``o``
-  that its ``wo`` rows take, and the partial products are summed.
+  that its ``wo`` rows take, and the partial products are summed.  In the
+  backward the input and the gathered K, V (and q) sum the ranks' partial
+  gradients (``to_local_region``).
 * decode: the cache is split by sequence (``kv_seq``); the new token is
   written by the rank whose slice holds its slot, each rank attends every
   head over its slice, and the slices' softmax parts are combined
@@ -47,7 +50,8 @@ reference's sharding constraints are explicit collectives
   normalisers).
 * MLP: ``w_gate`` / ``w_up`` / ``w_in`` / ``b_in`` column shards over
   ``d_ff``, ``w_down`` / ``w_out`` row shards; the partial products are
-  summed, then ``b_out`` is added once.
+  summed, then ``b_out`` is added once; the input's partial gradients are
+  summed in the backward.
 
 Under M-RoPE the contiguous cache is filled by sequence index, and the
 ``pos`` row holds each entry's temporal position, which the decode mask
@@ -65,7 +69,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, Segment
-from ..distributed.tensor_parallel import Shard, all_gather, all_reduce_sum, shard_of
+from ..distributed.tensor_parallel import (Shard, all_gather, all_reduce_sum, shard_of,
+                                           to_local_region)
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_attention
 from .common import ParamSpec, fan_in_init, ones_init, zeros_init
@@ -142,17 +147,27 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, hs: Shard, kvs: Shard,
          whole_q: bool):
     """(q, k, v [B,S,*,D], h0): k and v over every KV head; q over this
     rank's heads from global head ``h0`` where its ``hs`` columns are whole
-    heads and ``whole_q`` is false, else over every head (``h0`` 0)."""
+    heads and ``whole_q`` is false, else over every head (``h0`` 0).
+
+    Backward: ``x`` enters the column shards of ``wq`` (and of ``wk`` /
+    ``wv`` where they are split) through ``to_local_region``, so its
+    partial gradients are summed; K, V and a gathered q, replicated, enter
+    the rank's own heads the same way.  K and V from replicated ``wk`` /
+    ``wv`` (``KV·D`` not divisible by the mesh) read ``x`` itself: their
+    gradient, summed over the ranks' heads, is already whole."""
     b, s, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    x_cols = to_local_region(x, hs)
+    x_kv = (x_cols if hs.split else to_local_region(x, kvs)) if kvs.split else x
+    q = x_cols @ p["wq"]
+    k = x_kv @ p["wk"]
+    v = x_kv @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     k, v = all_gather(k, -1, kvs), all_gather(v, -1, kvs)
+    k, v = to_local_region(k, hs), to_local_region(v, hs)
     h0 = hs.offset // cfg.head_dim
     if hs.split and (whole_q or hs.size % cfg.head_dim):
-        q, h0 = all_gather(q, -1, hs), 0
+        q, h0 = to_local_region(all_gather(q, -1, hs), hs), 0
     q = q.reshape(b, s, -1, cfg.head_dim)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -191,9 +206,9 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
     b, s, _ = x.shape
     q_pos = _rope_q_positions(ctx.positions)
 
-    def kv_map():
+    def kv_map(h0=0, count=None):
         return make_qh_to_kv_map(cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.padded_heads, x.device)
+                                 cfg.padded_heads, x.device, h0, count)
 
     if cross:
         # keys and values from the encoder memory: no RoPE, no mask, no
@@ -217,7 +232,9 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
     kernel_route = ctx.mode == "prefill" and ctx.default_positions
     hs = shard_of("heads", cfg.padded_heads * cfg.head_dim)
     kvs = shard_of("kv_heads", cfg.num_kv_heads * cfg.head_dim)
-    q, k, v, h0 = _qkv(cfg, p, x, hs, kvs, whole_q=not kernel_route)
+    # the kernel's prefill and training attend this rank's own heads
+    own_heads = kernel_route or ctx.mode == "train"
+    q, k, v, h0 = _qkv(cfg, p, x, hs, kvs, whole_q=not own_heads)
     q = apply_rope(q, ctx.positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, ctx.positions, cfg.rope_theta, cfg.mrope_sections)
     window = seg.window
@@ -236,10 +253,10 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
             new_cache = _write_prefill_cache(ctx.cache, k, v, q_pos, window, by_index)
     elif ctx.mode in ("train", "prefill"):
         # explicit positions (or training, which has no backward kernel):
-        # plain dense/chunked attention over expanded KV
+        # plain dense/chunked attention over expanded KV, on q's heads
         spec = AttnSpec(causal=causal, window=window, impl="auto",
                         chunk_size=cfg.attn_chunk, causal_skip=cfg.causal_skip)
-        qh_map = kv_map()
+        qh_map = kv_map(h0, q.shape[2])
         o = attention(q, expand_kv(k, qh_map), expand_kv(v, qh_map), spec,
                       q_pos, q_pos)
         if ctx.mode == "prefill" and ctx.cache is not None:
@@ -409,6 +426,7 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Split on ffn over the mesh, the ranks' partial products are summed
     and ``b_out`` is added once, after the sum."""
     fs = shard_of("ffn", cfg.d_ff)
+    x = to_local_region(x, fs)
     if cfg.act == "gelu":
         if not fs.split:
             return gelu_mlp(x, p["w_in"], p["b_in"], p["w_out"], p["b_out"])

@@ -359,19 +359,24 @@ def gelu_mlp(x, w_in, b_in, w_out, b_out=None) -> torch.Tensor:
 
 
 def make_qh_to_kv_map(num_heads: int, num_kv_heads: int, padded_heads: int,
-                      device=None) -> Optional[torch.Tensor]:
+                      device=None, offset: int = 0,
+                      count: Optional[int] = None) -> Optional[torch.Tensor]:
     """Per-Q-head KV index map, or None when plain grouping is exact.
 
     Padding Q heads changes ``i // group`` assignments, so any padded config
     uses an explicit gather map: real head i -> i // group (original
     grouping); padded heads -> kv 0 (their o_proj rows are zero).  Every
-    grouped (GQA) config also expands, as in the JAX package.
+    grouped (GQA) config also expands, as in the JAX package.  ``offset``
+    / ``count``: the map of global heads ``offset .. offset + count - 1``
+    only (a rank's own heads; default: every head from ``offset``).
     """
-    if padded_heads == num_heads and num_kv_heads == num_heads:
+    count = padded_heads - offset if count is None else count
+    if (padded_heads == num_heads and num_kv_heads == num_heads
+            and (offset, count) == (0, padded_heads)):
         return None
     group = max(1, num_heads // num_kv_heads)
     idx = [min(i // group, num_kv_heads - 1) if i < num_heads else 0
-           for i in range(padded_heads)]
+           for i in range(offset, offset + count)]
     return torch.tensor(idx, dtype=torch.long, device=device)
 
 

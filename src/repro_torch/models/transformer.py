@@ -16,13 +16,16 @@ Entry points (functions of (cfg, params, ...), as in the JAX package):
 
 Each homogeneous segment runs as a Python loop over its stacked layers
 (the JAX package scanned them with ``jax.lax.scan``).  Under an active
-``DeviceMesh`` (the prefill and decode cells, ``launch/specs.py``) the
-params are each rank's shards and the reference's sharding constraints
-become explicit collectives (``distributed/tensor_parallel.py``): the
-embedding and the LM head split on ``vocab``, attention on ``heads`` /
-``kv_heads`` (and the decode cache on ``kv_seq``), the MLP on ``ffn``.
-Without a mesh every collective is the identity.  Caches are updated in place; a function that
-takes a cache returns it (with any new entries, such as the paged ``len``).
+``DeviceMesh`` (the train, prefill and decode cells, ``launch/specs.py``)
+the params are each rank's shards and the reference's sharding constraints
+become explicit collectives, differentiable (``distributed/
+tensor_parallel.py``): the embedding and the LM head split on ``vocab``
+(the training loss reads this rank's columns, ``train/loss.py``), attention
+on ``heads`` / ``kv_heads`` (and the decode cache on ``kv_seq``), the MLP on
+``ffn``; a rematerialised layer recomputes under the mesh its forward ran
+under.  Without a mesh every collective is the identity.  Caches are
+updated in place; a function that takes a cache returns it (with any new
+entries, such as the paged ``len``).
 A model with meta tokens (hymba) runs a learned prefix of
 ``num_meta_tokens`` positions ahead of every prompt; ``forward_train``
 strips it from the hidden it returns.  An MoE model's ``forward_train``
@@ -49,7 +52,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device, torch_dtype
 from ..configs.base import ModelConfig, Segment
-from ..distributed.tensor_parallel import all_gather, all_reduce_sum, shard_of
+from ..distributed.sharding import active_mesh, active_rules, is_device_mesh, use_mesh
+from ..distributed.tensor_parallel import all_gather, all_reduce_sum, shard_of, to_local_region
 from ..interop import tree_map
 from .blocks import BlockCtx, block_apply, block_cache_init, block_param_specs
 from .common import (ParamSpec, init_param_tree, logical_axes_tree, normal_init, ones_init,
@@ -130,7 +134,9 @@ def param_logical_axes(cfg: ModelConfig) -> dict:
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of ``embed``.  Split on vocab, each rank looks up the ids in its
     range, writes zeros for the others, and the ranks' rows are summed: one
-    rank contributes each row, so the sum is the lookup's bits."""
+    rank contributes each row, so the sum is the lookup's bits.  Backward,
+    the sum is the identity and the zeros stop the gradient, so each rank's
+    rows get the gradient of the positions that read them."""
     vs = shard_of("vocab", cfg.padded_vocab)
     ids = tokens.long()
     if not vs.split:
@@ -142,17 +148,21 @@ def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.
     return all_reduce_sum(rows, vs).to(torch_dtype(cfg.compute_dtype))
 
 
-def lm_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+def lm_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
+              gather: bool = True) -> torch.Tensor:
     """hidden [.., d] -> logits [.., padded_vocab], padded region masked.
     Split on vocab, each rank computes its columns (masked by their global
-    index) and the columns are gathered."""
+    index) and the columns are gathered; ``gather=False`` returns this
+    rank's columns (the vocab-parallel loss).  Backward, ``hidden`` enters
+    the column shards through ``to_local_region``."""
+    vs = shard_of("vocab", cfg.padded_vocab)
+    hidden = to_local_region(hidden, vs)
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = hidden @ w.to(hidden.dtype)
-    vs = shard_of("vocab", cfg.padded_vocab)
     first_pad = cfg.vocab_size - vs.offset          # local index of the first padded column
     if first_pad < vs.size:
         logits[..., max(first_pad, 0):] = NEG_INF
-    return all_gather(logits, -1, vs)
+    return all_gather(logits, -1, vs) if gather else logits
 
 
 # ------------------------------------------------------------ layer loops
@@ -173,16 +183,17 @@ def _run_segment(cfg: ModelConfig, seg: Segment, seg_params: dict, x,
     new_layers: List[dict] = []
     aux_sum: Dict[str, torch.Tensor] = {}
     remat = ctx.mode == "train" and cfg.remat == "full"
+    mesh, rules = active_mesh(), active_rules()
     for i in range(seg.count):
         layer_p = tree_map(lambda a: a[i], seg_params)
         cache_l = None if cache_seg is None else {k: t[i] for k, t in cache_seg.items()}
         lctx = dataclasses.replace(ctx, cache=cache_l)
         if remat:
             # the layer's own tree and context, bound now: the recompute
-            # runs in the backward, after this loop has moved on
-            x, aux = checkpoint(
-                lambda x_, p_=layer_p, c_=lctx: block_apply(cfg, seg, p_, x_, c_)[0::2],
-                x, use_reentrant=False)
+            # runs in the backward, after this loop has moved on (on CUDA,
+            # on autograd's device thread: under the mesh active here)
+            x, aux = checkpoint(_remat_layer(cfg, seg, layer_p, lctx, mesh, rules), x,
+                                use_reentrant=False)
             new_cache = None
         else:
             x, new_cache, aux = block_apply(cfg, seg, layer_p, x, lctx)
@@ -199,6 +210,17 @@ def _run_segment(cfg: ModelConfig, seg: Segment, seg_params: dict, x,
         else:
             out[key] = torch.stack([new[key] for new in new_layers])
     return x, out, aux_sum
+
+
+def _remat_layer(cfg: ModelConfig, seg: Segment, layer_p: dict, lctx: BlockCtx, mesh, rules):
+    """One layer as ``checkpoint`` runs it -> (x, aux); under ``mesh`` and
+    ``rules`` where a DeviceMesh is active (the recompute reads its shards)."""
+    def run(x_):
+        if not is_device_mesh(mesh):
+            return block_apply(cfg, seg, layer_p, x_, lctx)[0::2]
+        with use_mesh(mesh, rules):
+            return block_apply(cfg, seg, layer_p, x_, lctx)[0::2]
+    return run
 
 
 def _temporal_is_index(positions: torch.Tensor) -> bool:

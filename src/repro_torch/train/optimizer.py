@@ -19,10 +19,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..distributed.tensor_parallel import all_reduce_sum
 from ..interop import tree_flatten, tree_map
 
 PyTree = Any
@@ -71,8 +72,28 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.learning_rate * warm * cos
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_flatten(tree)[0]))
+def global_norm(tree: PyTree, shards: Optional[Sequence] = None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  ``shards`` (tensor-parallel: one
+    ``Shard`` or None per leaf, in tree order) marks the leaves that hold
+    this rank's shard of a tensor split over a mesh axis: their squares are
+    summed over that axis (one all-reduce an axis), each replicated leaf
+    counted once, so every rank gets the whole tree's norm.  With no leaf
+    split the sum is the single-device one, op for op."""
+    leaves = tree_flatten(tree)[0]
+    if shards is None or not any(s is not None and s.split for s in shards):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    whole, split, axes = [], {}, {}
+    for g, s in zip(leaves, shards):
+        sq = torch.sum(torch.square(g.float()))
+        if s is not None and s.split:
+            split.setdefault(s.axis, []).append(sq)
+            axes[s.axis] = s
+        else:
+            whole.append(sq)
+    total = sum(whole)
+    for axis, squares in split.items():
+        total = total + all_reduce_sum(sum(squares), axes[axis])
+    return torch.sqrt(total)
 
 
 def _clip_scale(max_norm: float, norm: torch.Tensor) -> torch.Tensor:

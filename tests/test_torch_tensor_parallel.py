@@ -27,8 +27,9 @@ tokens equal.
 Also here: ``flash_attention``'s ``head_offset`` (the plain version) —
 each shard of heads bitwise those heads of the call over every head,
 among them a shard of padded heads only; the cells of the families not yet
-ported (and the train cell) refusing ``model`` > 1 with their ``ROADMAP.md``
-item; and the tensor-parallel helpers the identity without a mesh.
+ported refusing ``model`` > 1 with their ``ROADMAP.md`` item, their train
+cells among them; and the tensor-parallel helpers the identity without a
+mesh.
 """
 
 import math
@@ -403,8 +404,15 @@ def test_families_not_ported_refuse_model_over_one(arch, item, kind):
         cell.fn(*cell.args)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_cell_refuses_model_over_one(arch):
+@pytest.mark.parametrize("arch,item", [
+    ("mixtral-8x7b", "Queue 1 item 2 (b)"), ("hymba-1.5b", "Queue 1 item 2 (c)"),
+    ("xlstm-1.3b", "Queue 1 item 2 (d)"), ("qwen2-vl-7b", "Queue 1 item 2 (e)"),
+    ("seamless-m4t-medium", "Queue 1 item 2 (f)"),
+])
+def test_train_cell_refuses_model_over_one(arch, item):
+    """The train cell of each family not ported over ``model`` > 1 refuses,
+    naming its own ``ROADMAP.md`` item (the dense decoders' runs,
+    ``tests/test_torch_tp_train.py``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.distributed.sharding import use_mesh
@@ -415,7 +423,9 @@ def test_train_cell_refuses_model_over_one(arch):
     mesh = StandInMesh()
     with use_mesh(mesh, rules_for("train", cfg)):
         cell = SP.build_cell(cfg, ShapeConfig("t", SEQ, B, "train"), mesh)
-    with pytest.raises(NotImplementedError, match=r"train cell.*ROADMAP\.md, Queue 1 item 2 \(a\)"):
+    with pytest.raises(NotImplementedError,
+                       match="train cell of " + re.escape(cfg.name) + ".*"
+                       + re.escape(f"ROADMAP.md, {item}")):
         cell.fn(*cell.args)
 
 
