@@ -181,20 +181,21 @@ Phases, each printing one JSON line:
             of the shortest request within tolerance of a teacher-forced
             contiguous decode's maximum logit.  Each model is freed before
             the next.
-10. zoo_rest the rest of the zoo at full width, nothing cut (bf16, random
-            weights from seed 0 made on the card), each freed before the
-            next, every count zeroed just before its traffic and read just
-            after.  xlstm-1.3b (48 blocks, d_model 2048, 4 heads: 42 mLSTM,
-            6 sLSTM) through ``ServeEngine``: first the fp32 check at 8 of
-            48 blocks (block 7 the first sLSTM), one lane, a 600-token
-            prompt x 8 new, engine tokens equal to contiguous prefill +
-            decode; then 4 prompts of 256/700/1300/2048 tokens x 16 new,
-            batch 4 (no kernel of the port on its path: none may launch),
-            the bf16 tokens of the shortest within tolerance of a
-            teacher-forced contiguous decode's maximum logit, a profiled
-            decode step with 4 lanes and a profiled 2048-token prefill with
-            the sLSTM loop's and the mLSTM chunk scan's device ms (on the
-            first 8 blocks, the unit the 48 repeat).
+10. zoo_rest the rest of the zoo at full width (bf16, random weights from
+            seed 0 made on the card), each freed before the next, every
+            count zeroed just before its traffic and read just after.
+            xlstm-1.3b (d_model 2048, 4 heads; its 48 blocks are 6 units of
+            7 mLSTM + 1 sLSTM, served at 24: 3 units) through
+            ``ServeEngine``: first the fp32 check at 8 of 48 blocks (block
+            7 the first sLSTM), one lane, a 600-token prompt x 8 new, engine
+            tokens equal to contiguous prefill + decode; then 4 prompts of
+            256/700/1300/2048 tokens x 16 new, batch 4 (no kernel of the
+            port on its path: none may launch), the bf16 tokens of the
+            shortest within tolerance of a teacher-forced contiguous
+            decode's maximum logit, a profiled decode step with 4 lanes and
+            a profiled 1300-token prefill with the sLSTM loop's and the
+            mLSTM chunk scan's device ms (on the first 8 blocks, the unit
+            the 48 repeat).
             qwen2-vl-7b (28 layers, d_model 3584, 28 heads padded to 32
             over 4, D 128, M-RoPE 16/24/24) through ``prefill`` on 1536
             patch embeddings then ``decode_step`` on text tokens, batch 1:
@@ -279,6 +280,29 @@ Phases, each printing one JSON line:
             just before the steps and read just after: no kernel of the
             port launches in training, flash_attention (no backward kernel)
             included.  (b)'s times are gloo's, staged through the host.
+14. tensor_parallel_zoo  the MoE and hymba cells tensor-parallel over
+            ``model`` (``TPZ_*``): first ``flash_attention`` on rank 1's
+            heads at (b)'s prefill shapes, as 12 (a).  Then, weights from
+            seed 0 made on the card: mixtral-8x7b (8 of 32 layers, TP-MoE,
+            1 x 4608 past its 4096 window), phi3.5-moe (4 of 32, EP at
+            capacity 8.0, 4 x 1024), hymba-1.5b (whole, 4 x 1024 behind 128
+            meta tokens) through the prefill cell and 16 decode-cell steps,
+            and their train cells (1 / 1 / 4 layers, 1 x 2048, 2 AdamW
+            steps; phi3.5-moe without its per-slice load-balance loss).
+            (a) In a process of its own under NCCL at world size 1: the
+            cells bitwise ``T.prefill`` / ``T.decode_step`` and (under
+            deterministic algorithms) ``train_step``, then in fp32 on the
+            same weights and tokens.  (b) Over 2 gloo ranks sharing the
+            card, fed (a)'s tokens: fp32 logits within 1e-3 (row norm) and
+            m after step 1 within 1e-3 (per leaf) of (a)'s; bf16 logits
+            within 3e-2 or twice (a)'s own bf16 error, fed tokens within
+            3e-2 of (a)'s top logit, losses 1e-2, grad norms 2e-2, m after
+            step 1 5e-2 or twice (a)'s own bf16 error; rows routed to other
+            experts than (a)'s reported, not held; replicated leaves
+            bitwise across the ranks; every prefill's flash_attention
+            hopper at the rank's head offset.  phi3.5-moe's prefill at its
+            published capacity 1.25 is reported (dropped share a rank,
+            logits distance), not held.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
@@ -289,8 +313,8 @@ phase 9's and phase 10's launches by model, and for paged_attention and
 flash_attention its phase-2 cases at phase 9's and phase 10's shapes with the
 launches of the model each stands for; for flash_attention also phase 10's
 launches by variant and by mask and the prefills that took the plain
-route, and phase 12 (a)'s cases with (c)'s launches; phase 13's launches,
-zero), the card's
+route, and phase 12 (a)'s and phase 14's cases with (c)'s and (b)'s
+launches; phase 13's launches, zero; phase 14's by model), the card's
 name and power limit from nvidia-smi, and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises before that line (non-zero exit).  Without a
 CUDA card, or without the rest of the repository beside it, it exits
@@ -299,6 +323,7 @@ non-zero without a result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -460,8 +485,8 @@ DIST_PREFILL = (4, 1024)
 # to (b)'s per row (bf16 compute: the ranks' partial products summed in fp32
 # round otherwise than one product)
 TP_FLASH_CASES = {
-    "llama3_4096_tp4": (1, 32, 32, 8, 4096, 128, 4, 8),
-    "qwen2_4096_tp2": (1, 16, 12, 2, 4096, 128, 2, 8),
+    "llama3_4096_tp4": (1, 32, 32, 8, 4096, 128, 4, 8, None),
+    "qwen2_4096_tp2": (1, 16, 12, 2, 4096, 128, 2, 8, None),
 }
 TP_PREFILL = DIST_PREFILL
 TP_DECODE_STEPS = 16
@@ -492,15 +517,71 @@ TPT_LR = 3e-4
 TPT_LOSS_REL_TOL = 1e-2
 TPT_GNORM_REL_TOL = 2e-2
 TPT_M_REL_TOL = 5e-2
-# phase 10: the rest of the zoo at full width, nothing cut (bf16, random
-# weights from seed 0 made on the card).  xlstm-1.3b through ServeEngine:
-# its prompts x ZOO_NEW_TOKENS, batch 4; the fp32 check at 8 of 48 blocks
+# phase 14: the MoE and hymba cells tensor-parallel over "model", full
+# width, random weights from seed 0 made on the card, bf16 compute.  Serve
+# (bf16 params): (layers kept, batch, prompt tokens), the prefill cell, then
+# TPZ_DECODE_STEPS decode-cell steps; prompts long enough for every window
+# to bite (hymba's 128 meta tokens take 1024 past its 1024 window; mixtral's
+# 4608 past its 4096).  Train (fp32 params, remat "full"): (layers, batch,
+# seq), TPZ_TRAIN_STEPS AdamW steps.  (a) under NCCL at world size 1, in a
+# process of its own: the cells bitwise T.prefill / T.decode_step and
+# train_step; (b) over TPZ_RANKS gloo ranks sharing the card, held to (a)
+# with phase 12's and 13's limits, or twice (a)'s own bf16 error where
+# larger (mixtral's 8 MoE layers, hymba's 32 of three sums each: a bf16
+# partial sum rounds otherwise than one product).  phi3.5-moe (EP) is held at a capacity
+# factor that drops nothing (E / K = 8.0): capacity is per dispatch shard,
+# so at its published factor 2 ranks drop other assignments than one does,
+# by design; the published factor's prefill runs too, reported unheld.  So
+# is its load-balance loss (a product of two means over each slice's
+# tokens): its train cells are held without it (the z-loss, a plain mean,
+# stays).
+TPZ_SERVE = {
+    "mixtral-8x7b": (8, 1, 4608),
+    "phi3.5-moe-42b-a6.6b": (4, 4, 1024),
+    "hymba-1.5b": (None, 4, 1024),
+}
+TPZ_TRAIN = {
+    "mixtral-8x7b": (1, 1, 2048),
+    "phi3.5-moe-42b-a6.6b": (1, 1, 2048),
+    "hymba-1.5b": (4, 1, 2048),
+}
+TPZ_NODROP_CF = {"phi3.5-moe-42b-a6.6b": 8.0}
+TPZ_DECODE_STEPS = 16
+# (b) against (a) computing in fp32 (the same weights and fed tokens, the
+# prefill and TPZ_FP32_STEPS decode steps): the tensor-parallel arithmetic
+# alone, partial sums in another order
+TPZ_FP32_ROW_TOL = 1e-3
+TPZ_FP32_M_TOL = 1e-3
+TPZ_FP32_STEPS = 4
+# flash_attention on (b)'s rank 1 at phase 14's prefill shapes, as
+# TP_FLASH_CASES (the last entry the window): mixtral's 16 of 32 heads from
+# 16, hymba's 16 of its 32 padded from 16 (heads 16-24 real, 7 padded) on a
+# local layer of 1024 + 128 meta tokens, phi3.5-moe's 16 from 16
+TPZ_FLASH_CASES = {
+    "mixtral_4608_w4096_tp2": (1, 32, 32, 8, 4608, 128, 2, 16, 4096),
+    "hymba_1152_w1024_tp2": (4, 32, 25, 5, 1152, 64, 2, 16, 1024),
+    "phi35moe_1024_tp2": (4, 32, 32, 8, 1024, 128, 2, 16, None),
+}
+TPZ_FLASH_ARCH = {"mixtral_4608_w4096_tp2": "mixtral-8x7b",
+                  "hymba_1152_w1024_tp2": "hymba-1.5b",
+                  "phi35moe_1024_tp2": "phi3.5-moe-42b-a6.6b"}
+TPZ_TRAIN_STEPS = 2
+TPZ_RANKS = 2
+TPZ_LR = 3e-4
+# phase 10: the rest of the zoo at full width (bf16, random weights from
+# seed 0 made on the card).  xlstm-1.3b through ServeEngine at XLSTM_LAYERS
+# of its 48 blocks (3 of its 6 repeating units of 7 mLSTM + 1 sLSTM; cut
+# to keep the script's time with phase 14 in it): its prompts x
+# ZOO_NEW_TOKENS, batch 4; the repeating unit's prefill profiled over the
+# XLSTM_PROFILE_PROMPT-token prompt; the fp32 check at 8 of 48 blocks
 # (block 7 the first sLSTM), one lane, a 600-token prompt x 8 new.
 # qwen2-vl-7b: 1536-token prompts, batch 1, x 16 text tokens; an image block
 # of 32 x 32 between 256 text tokens on each side; the fp32 check at 2 of
 # 28 layers.  seamless-m4t-medium: batch 4 of 1200 frames and a request of
 # 400 frames alone, 32-token decoder prompts, x 32 new.
 XLSTM_LENS = [256, 700, 1300, 2048]
+XLSTM_LAYERS = 24
+XLSTM_PROFILE_PROMPT = 1300
 XLSTM_FP32 = (8, 600)
 VLM_PROMPT, VLM_TEXT, VLM_GRID, VLM_NEW = 1536, 256, 32, 16
 VLM_FP32_LAYERS = 2
@@ -2311,19 +2392,20 @@ def read_counts(torch, K, FK, T, calls):
 
 
 def xlstm_rest(torch, M, K, FK, T, blocks_module):
-    """xlstm-1.3b through ServeEngine: the fp32 check (8 of 48 blocks, one
-    lane, bucket 1: engine tokens equal to contiguous prefill + decode),
-    then the bf16 traffic with every count zeroed just before and read just
-    after, a profiled decode step with 4 live lanes and a profiled
-    2048-token prefill of the model's repeating unit (8 blocks) with the
-    sLSTM loop's and the mLSTM chunk scan's device ms."""
+    """xlstm-1.3b (XLSTM_LAYERS blocks) through ServeEngine: the fp32 check
+    (8 of 48 blocks, one lane, bucket 1: engine tokens equal to contiguous
+    prefill + decode), then the bf16 traffic with every count zeroed just
+    before and read just after, a profiled decode step with 4 live lanes
+    and a profiled XLSTM_PROFILE_PROMPT-token prefill of the model's
+    repeating unit (8 blocks) with the sLSTM loop's and the mLSTM chunk
+    scan's device ms."""
     import numpy as np
 
     import repro_torch.models.xlstm as xlstm_module
     from repro_torch.configs.registry import get_config
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 
-    cfg = get_config("xlstm-1.3b")
+    cfg = get_config("xlstm-1.3b").replace(num_layers=XLSTM_LAYERS)
     t0 = time.perf_counter()
     layers, n = XLSTM_FP32
     cfg32 = cfg.replace(num_layers=layers, compute_dtype="float32")
@@ -2365,7 +2447,8 @@ def xlstm_rest(torch, M, K, FK, T, blocks_module):
     tokens = sum(len(r.generated) for r in done)
     prefill_s = sum(r.prefill_ms for r in done) / 1e3
     emit({"phase": "zoo_rest", "arch": cfg.name, "dtype": cfg.compute_dtype,
-          "layers": cfg.num_layers, "plan": [(seg.kind, seg.count) for seg in cfg.decoder_plan()],
+          "layers": cfg.num_layers, "of_layers": get_config("xlstm-1.3b").num_layers,
+          "plan": [(seg.kind, seg.count) for seg in cfg.decoder_plan()],
           "setup_s": setup_s, "prompt_tokens": [len(r.prompt) for r in reqs],
           "requests_served": len(done), "tokens": tokens, "seconds": seconds,
           "prefill_ms": [[len(r.prompt) - 1, r.prefill_ms] for r in done],
@@ -2394,8 +2477,9 @@ def xlstm_rest(torch, M, K, FK, T, blocks_module):
     t1 = time.perf_counter()
     with annotated(torch, xlstm_module, "slstm_scan", ranges[0]), \
             annotated(torch, xlstm_module, "mlstm_chunked", ranges[1]):
-        profile_prefill(torch, unit_eng, reqs[-1].prompt[:-1],
-                        phase="zoo_rest_prefill_profile", ranges=ranges)
+        prompt = next(r.prompt for r in reqs if len(r.prompt) == XLSTM_PROFILE_PROMPT)
+        profile_prefill(torch, unit_eng, prompt[:-1], phase="zoo_rest_prefill_profile",
+                        ranges=ranges)
     emit({"phase": "zoo_rest_prefill_profile_seconds", "arch": cfg.name,
           "blocks": unit.num_layers, "seconds": time.perf_counter() - t1})
     del eng, prof_eng, unit_eng, params
@@ -2959,12 +3043,12 @@ def phase_distributed(torch, K, FK, handoff):
 # ------------------------------------------------------------------ phase 12
 
 
-def tp_flash_cases(torch, flush):
+def tp_flash_cases(torch, flush, cases=TP_FLASH_CASES):
     """(a) ``flash_attention`` on a tensor-parallel rank's heads
-    (``head_offset``) at full width, bf16: each rank's shard of
-    ``TP_FLASH_CASES`` on both variants bitwise those heads of the launch
-    over every head and held to its plain version (TOL, ROW_REL_TOL); the
-    ``timed`` shard timed as phase 2 times, beside the full launch."""
+    (``head_offset``) at full width, bf16: each rank's shard of ``cases``
+    on both variants bitwise those heads of the launch over every head and
+    held to its plain version (TOL, ROW_REL_TOL); the ``timed`` shard timed
+    as phase 2 times, beside the full launch."""
     import numpy as np
 
     from repro_torch.kernels.flash_attention.kernel import (VARIANTS, choose_variant,
@@ -2973,12 +3057,12 @@ def tp_flash_cases(torch, flush):
 
     rng = np.random.default_rng(12)
     rows = []
-    for case, (B, H, NH, KVH, S, D, ranks, timed) in TP_FLASH_CASES.items():
+    for case, (B, H, NH, KVH, S, D, ranks, timed, window) in cases.items():
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
                    .to("cuda", torch.bfloat16).transpose(1, 2)
                    for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
         per, rep = H // ranks, NH // KVH
-        kw = dict(causal=True, num_heads=NH)
+        kw = dict(causal=True, window=window, num_heads=NH)
         full = {var: flash_attention(q, k, v, variant=var, **kw) for var in VARIANTS}
         checked = {}
         for r in range(ranks):
@@ -3009,18 +3093,24 @@ def tp_flash_cases(torch, flush):
         check(variant == "hopper", f"tensor_parallel {case}: the shard takes {variant}")
         lo, hi = timed, timed + real                      # global real heads of the shard
         g0, g1 = lo // rep, (hi - 1) // rep + 1           # the KV heads they read
-        library = sdpa_flash_yardstick(torch, qs, k[:, g0:g1], v[:, g0:g1], real, True, None)
+        if lo % rep == 0 and real == (g1 - g0) * rep:     # whole KV groups: the library's GQA
+            kl, vl = k[:, g0:g1], v[:, g0:g1]
+        else:                                             # a cut group: one KV head a head
+            idx = torch.arange(lo, hi, device="cuda") // rep
+            kl, vl = k[:, idx], v[:, idx]
+        library = sdpa_flash_yardstick(torch, qs, kl, vl, real, True, window)
         times = measure(torch, flush,
                         lambda: flash_attention(qs, k, v, head_offset=timed, **kw),
                         lambda: flash_attention_ref(qs, k, v, head_offset=timed, **kw), library,
                         {"generic_ms": lambda: flash_attention(qs, k, v, variant="generic",
                                                                head_offset=timed, **kw),
                          "full_launch_ms": lambda: flash_attention(q, k, v, **kw)})
-        pairs = visible_pairs(B, S, S, True, None)
+        pairs = visible_pairs(B, S, S, True, window)
         nbytes = (B * real * S * D + 2 * B * (g1 - g0) * S * D + B * per * S * D) * 2
         bnd, by = bound_ms(nbytes, 4.0 * D * real * pairs, "bfloat16")
         err_max, row_err = checked[(timed, "hopper")]
         rows.append(dict(case=case, dtype="bfloat16", q=[B, per, S, D], num_heads=NH, kvh=KVH,
+                         window=window,
                          ranks=ranks, head_offsets=[r * per for r in range(ranks)],
                          timed_offset=timed, real_heads=real, variant=variant,
                          bitwise_full_launch=True,
@@ -3569,6 +3659,766 @@ def phase_tensor_parallel_train(torch):
     return one["launches"], [rep["launches"] for rep in ranks]
 
 
+# ----------------------------------------------------------------- phase 14
+
+
+def tpz_config(arch, kind, cf=None, dtype="bfloat16"):
+    """Phase 14's config of ``arch`` for ``kind`` ("serve" or "train"), at
+    capacity factor ``cf`` where given, computing in ``dtype``."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch).replace(compute_dtype=dtype)
+    layers = (TPZ_SERVE if kind == "serve" else TPZ_TRAIN)[arch][0]
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    if cf is not None:
+        cfg = cfg.replace(capacity_factor=cf)
+    return cfg.replace(remat="full") if kind == "train" else cfg
+
+
+def device_local_params(torch, cfg, dtype, specs, mesh, seed=0, as_dtype=None):
+    """``device_params``' weights (the same draws, leaf by leaf) at this
+    rank's shards under ``specs``: each leaf is drawn whole on the card,
+    sliced and freed, so no rank holds the whole model.  ``as_dtype``: the
+    shards cast to it (``dtype``'s values, held wider)."""
+    from repro_torch.distributed.sharding import shard_slices
+    from repro_torch.interop import tree_flatten, tree_unflatten
+    from repro_torch.models.common import is_tuple
+    from repro_torch.models.transformer import param_specs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    leaves, treedef = tree_flatten(param_specs(cfg))
+    out = []
+    with torch.device("cuda"):
+        for spec, sp in zip(leaves, tree_flatten(specs, is_tuple)[0]):
+            t = spec.make(gen, dtype).to("cuda")
+            local = t[shard_slices(sp, t.shape, mesh)]
+            out.append(local.clone() if as_dtype in (None, dtype) else local.to(as_dtype))
+            del t, local
+    return tree_unflatten(treedef, out)
+
+
+class CollectiveCounter:
+    """Counts the calls and bytes of ``torch.distributed``'s all_reduce,
+    all_gather and all_to_all_single over groups of more than one rank,
+    while active; ``take()`` returns the counts so far and starts anew."""
+
+    OPS = ("all_reduce", "all_gather", "all_to_all_single")
+
+    def __init__(self):
+        self.calls = {}
+
+    def take(self) -> dict:
+        out, self.calls = self.calls, {}
+        return out
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.patches = []
+        for op in self.OPS:
+            def wrap(fn, op=op):
+                def inner(*args, group=None, **kw):
+                    if dist.get_world_size(group) > 1:
+                        t = args[0] if op == "all_reduce" else args[1]
+                        c = self.calls.setdefault(op, {"calls": 0, "bytes": 0})
+                        c["calls"] += 1
+                        c["bytes"] += t.numel() * t.element_size()
+                    return fn(*args, group=group, **kw)
+                return inner
+            self.patches.append(Patched(dist, op, wrap).__enter__())
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.__exit__(*exc)
+
+
+def tpz_serve(torch, K, FK, mesh, arch, forced=None, cf=None, prefill_only=False,
+              reference=False, dtype="bfloat16", steps=TPZ_DECODE_STEPS):
+    """``arch``'s prefill cell at TPZ_SERVE's batch and prompt (numpy seed 0
+    tokens), then ``steps`` decode-cell steps, on ``mesh``, every
+    rank on its own shards (bf16 weights from seed 0, drawn rank by rank);
+    the decode fed ``forced`` tokens where given, else its own greedy ones.
+    Counts zeroed just before the timed prefill (the second) and read after
+    the decode; ``flash_attention``'s calls counted by head offset, the
+    MoE's dropped share by call.  With ``reference`` (world size 1) the
+    cells are held bitwise to ``T.prefill`` / ``T.decode_step`` on the same
+    weights.  ``dtype``: the compute's, and the weights' (the bf16 draws
+    cast: both runs hold the same values).  Returns (report,
+    logits [prefill, each step], fed tokens); the report's ``routes``, each
+    route call's expert ids."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import repro_torch.models.blocks as blocks
+    import repro_torch.models.moe as moe_module
+    import repro_torch.models.transformer as T
+    from repro_torch import torch_dtype
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+
+    cfg = tpz_config(arch, "serve", cf, dtype)
+    _, b, prompt = TPZ_SERVE[arch]
+    meta = cfg.num_meta_tokens
+    seq = meta + prompt + TPZ_DECODE_STEPS
+    cells = {}
+    for kind in ("prefill", "decode"):
+        with use_mesh(mesh, rules_for(kind, cfg)):
+            cells[kind] = SP.build_cell(cfg, ShapeConfig(kind, seq, b, kind), mesh)
+    t0 = time.perf_counter()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    for r in range(world):              # one rank at a time: the whole leaves are drawn
+        if r == rank:
+            params = device_local_params(torch, cfg, torch.bfloat16,
+                                         cells["prefill"].in_specs[0], mesh,
+                                         as_dtype=getattr(torch, dtype))
+        torch.cuda.synchronize()
+        dist.barrier()
+    setup_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, prompt), dtype=np.int64).astype(np.int32)).to("cuda")
+    batch = SP.local_tree({"tokens": tokens}, cells["prefill"].in_specs[1], mesh)
+    offsets, drops, routes = {}, [], []
+
+    def by_offset(fn):
+        def inner(*args, head_offset=0, **kw):
+            offsets[head_offset] = offsets.get(head_offset, 0) + 1
+            return fn(*args, head_offset=head_offset, **kw)
+        return inner
+
+    def note_drops(fn):
+        def inner(*args, **kw):
+            y, aux = fn(*args, **kw)
+            drops.append(aux["moe_drop_frac"])
+            return y, aux
+        return inner
+
+    def note_routes(fn):
+        def inner(*args, **kw):
+            out = fn(*args, **kw)
+            routes.append(out[3].sort(-1).values.to(torch.int16).cpu())   # the expert ids
+            return out
+        return inner
+
+    if dtype == "bfloat16" and not prefill_only:
+        cells["prefill"].fn(params, batch)                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    FK.reset_variant_counts()
+    report = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b, "prompt_tokens": prompt,
+              "meta_tokens": meta, "window": cfg.sliding_window,
+              "capacity_factor": cfg.capacity_factor if cfg.num_experts else None,
+              "weights_setup_s": setup_s}
+    with Patched(blocks, "flash_attention", by_offset), \
+            Patched(blocks, "moe_forward", note_drops), \
+            Patched(moe_module, "route", note_routes), CollectiveCounter() as coll:
+        t0 = time.perf_counter()
+        logits, cache = cells["prefill"].fn(params, batch)
+        torch.cuda.synchronize()
+        report["prefill_cell_ms"] = (time.perf_counter() - t0) * 1e3
+        report["prefill_collectives"] = coll.take()
+        if cfg.num_experts:
+            report["prefill_drop_frac"] = [float(d) for d in drops]
+        out_logits, fed = [logits], []
+        if not prefill_only:
+            cache = SP.local_tree(whole_cache(torch, cache, cells["prefill"].out_specs[1],
+                                              mesh), cells["decode"].in_specs[1], mesh)
+            nxt, step_ms = logits.argmax(-1).to(torch.int32), []
+            for step in range(steps):
+                tok = nxt if forced is None else forced[step].to("cuda")
+                cur = torch.full_like(tok, meta + prompt + step)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = cells["decode"].fn(params, cache, tok, cur)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                out_logits.append(logits)
+                fed.append(tok)
+                nxt = logits.argmax(-1).to(torch.int32)
+            report["decode_cell_step_ms"] = step_ms
+            report["decode_collectives_per_step"] = {
+                op: {k: v / steps for k, v in c.items()}
+                for op, c in coll.take().items()}
+    report.update(launches=dict(K.launch_counts), flash_attention_variants=dict(FK.variant_counts),
+                  flash_attention_calls_by_head_offset=offsets,
+                  peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del cache
+    if reference:
+        cache = T.init_cache(cfg, b, seq, torch_dtype(cfg.compute_dtype), device="cuda")
+        hidden, cache = T.prefill(cfg, params, {"tokens": tokens}, cache)
+        check(torch.equal(T.lm_logits(cfg, params, hidden), out_logits[0]),
+              f"tensor_parallel_zoo (a) {arch}: prefill-cell logits not bitwise T.prefill's")
+        for step, tok in enumerate(fed):
+            check(forced is not None or step == 0 or
+                  torch.equal(tok, out_logits[step].argmax(-1).to(torch.int32)),
+                  f"tensor_parallel_zoo (a) {arch}: greedy token {step}")
+            lg, cache = T.decode_step(cfg, params, cache, tok,
+                                      torch.full_like(tok, meta + prompt + step))
+            check(torch.equal(lg, out_logits[step + 1]),
+                  f"tensor_parallel_zoo (a) {arch}: decode-cell logits {step} not bitwise "
+                  "T.decode_step's")
+        report["bitwise_prefill_decode_step"] = not prefill_only
+        del cache, hidden
+    del params
+    torch.cuda.empty_cache()
+    report["routes"] = routes
+    return report, out_logits, (torch.stack(fed) if fed else None)
+
+
+def tpz_batches(cfg, b, seq):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(TPZ_TRAIN_STEPS):
+        t = rng.integers(0, cfg.vocab_size, (b, seq + 1), dtype=np.int64).astype(np.int32)
+        out.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return out
+
+
+def tpz_train_cell(torch, mesh, arch, dtype="bfloat16"):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg = tpz_config(arch, "train", TPZ_NODROP_CF.get(arch), dtype)
+    _, b, seq = TPZ_TRAIN[arch]
+    tcfg = TrainConfig(optimizer=AdamWConfig(learning_rate=TPZ_LR, warmup_steps=1))
+    if arch in TPZ_NODROP_CF:       # EP: the load-balance loss is per token slice
+        tcfg = dataclasses.replace(tcfg, moe_lb_coeff=0.0)
+    with use_mesh(mesh, rules_for("train", cfg)):
+        cell = SP.build_cell(cfg, ShapeConfig("train_tp", seq, b, "train"), mesh, tcfg)
+    return cfg, tcfg, cell, tpz_batches(cfg, b, seq)
+
+
+def fingerprint(torch, tree) -> list:
+    """Per leaf, two sums over its bits read as int32 (plain and squared,
+    int64), -0.0 read as 0.0: leaves ``torch.equal`` holds equal print
+    equal, and leaves that differ print equal by a chance of the order of
+    2^-64."""
+    from repro_torch.interop import tree_flatten
+
+    out = []
+    for t in tree_flatten(tree)[0]:
+        bits = (t.detach() + 0).contiguous().view(-1).view(torch.int32)
+        a = b = 0
+        for c in bits.split(1 << 26):
+            c = c.long()
+            a += int(c.sum())
+            b += int((c * c).sum())
+        out.append((a, b))
+    return out
+
+
+def m1_sample(t):
+    """A moment leaf as phase 14 keeps it on the host to compare: every
+    element of a leaf up to 2^20 elements, every 16th (flattened) of a
+    larger one, whose relative error it estimates; the disk takes a
+    sixteenth of the full-width experts' moments."""
+    flat = t.detach().reshape(-1)
+    return (flat[::16] if flat.numel() > 1 << 20 else flat).cpu().clone()
+
+
+def tpz_first_m(torch, cell, mesh, batch, params, state) -> list:
+    """The cell's m after its first step from ``params`` and ``state``."""
+    from repro_torch.interop import tree_flatten
+
+    _, state, _ = cell.fn(params, state, tpt_batch(torch, cell, mesh, batch))
+    return tree_flatten(state.m)[0]
+
+
+def tpz_train_single(torch, K, mesh, arch, work):
+    """(a)'s train part: the TP train cell at world size 1 for
+    TPZ_TRAIN_STEPS steps, then ``train_step`` from the same weights, one
+    training state on the card at a time, both under deterministic
+    algorithms; params, m and v equal after every step (through their
+    bits' ``fingerprint``), losses and grad norms equal.  Then the cell's
+    first step computing in fp32, and each leaf's bf16 m after step 1 off
+    the fp32 one (the model's own bf16 error).  Saves the cell's m after
+    step 1 in bf16 and fp32 compute as each of (b)'s ranks holds it."""
+    from repro_torch.distributed.sharding import MeshSpec, shard_slices, use_mesh
+    from repro_torch.interop import tree_flatten
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models.common import is_tuple
+    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.train_step import train_step
+
+    cfg, tcfg, cell, batches = tpz_train_cell(torch, mesh, arch)
+    ranks_mesh = MeshSpec(("data", "model"), (1, TPZ_RANKS))
+    with use_mesh(ranks_mesh, rules_for("train", cfg)):
+        m_specs = tree_flatten(SP.opt_pspecs(cfg, ranks_mesh).m, is_tuple)[0]
+
+    def save_m1(m1, tag):
+        for r in range(TPZ_RANKS):
+            torch.save([m1_sample(t[shard_slices(s, t.shape, ranks_mesh, (0, r))])
+                        for t, s in zip(m1, m_specs)], work / f"m1{tag}_{arch}_rank{r}.pt")
+
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    # train_step alone is not reproducible on the card by default: the
+    # backward of GQA's KV expansion (index_select) adds with atomics
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for name in ("cell", "train_step"):
+        params = device_params(torch, cfg, torch.float32)
+        n_params = sum(t.numel() for t in tree_flatten(params)[0])
+        state = init_state(params)
+        run = runs[name] = {"losses": [], "grad_norms": [], "step_ms": [], "prints": []}
+        for i, batch in enumerate(batches):
+            feed = tpt_batch(torch, cell, mesh, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "cell":
+                params, state, m = cell.fn(params, state, feed)
+            else:
+                params, state, m = train_step(cfg, tcfg, params, state, feed)
+            torch.cuda.synchronize()
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["losses"].append(m["loss"].item())
+            run["grad_norms"].append(m["grad_norm"].item())
+            run["prints"].append(fingerprint(torch, (params, state.m, state.v)))
+            if name == "cell" and i == 0:
+                m1 = tree_flatten(state.m)[0]
+                save_m1(m1, "")
+                m1 = [m1_sample(t) for t in m1]
+        del params, state, m, feed
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    cell_run, ref = runs["cell"], runs["train_step"]
+    differ = [i + 1 for i in range(TPZ_TRAIN_STEPS) if cell_run["prints"][i] != ref["prints"][i]]
+    check(not differ, f"tensor_parallel_zoo (a) {arch}: params / m / v after steps {differ} "
+                      "not train_step's")
+    check(cell_run["losses"] == ref["losses"] and cell_run["grad_norms"] == ref["grad_norms"],
+          f"tensor_parallel_zoo (a) {arch}: losses {cell_run['losses']} / {ref['losses']}")
+    launches = dict(K.launch_counts)
+    check(launches["flash_attention"] == 0,
+          f"tensor_parallel_zoo (a) {arch} train: flash_attention launched {launches}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same first step computing in fp32: the bf16 m's own error, per leaf
+    cfg32, _, cell32, _ = tpz_train_cell(torch, mesh, arch, "float32")
+    params = device_params(torch, cfg32, torch.float32)
+    m32 = tpz_first_m(torch, cell32, mesh, batches[0], params, init_state(params))
+    del params
+    save_m1(m32, "32")
+    m32 = [m1_sample(t) for t in m32]
+    bf16_err = [((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(m1, m32)]
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+            "batch": TPZ_TRAIN[arch][1], "seq": TPZ_TRAIN[arch][2],
+            "capacity_factor": cfg.capacity_factor if cfg.num_experts else None,
+            "losses": cell_run["losses"], "grad_norms": cell_run["grad_norms"],
+            "step_ms": {"cell": cell_run["step_ms"], "train_step": ref["step_ms"]},
+            "bitwise_equal_train_step": True, "deterministic_algorithms": True,
+            "m_step1_bf16_vs_fp32_rel_err": bf16_err,
+            "launches": launches, "peak_memory_bytes": peak,
+            "note": "one training state on the card at a time; equal through fingerprints "
+                    "of every leaf's bits"}
+
+
+def tpz_train_rank(torch, K, mesh, arch, work, rank):
+    """(b)'s train part on one rank: the TP train cell from (a)'s weights
+    (drawn rank by rank) and batches, its m after step 1 against (a)'s slice
+    (per leaf, on the host); its replicated leaves saved for the ranks'
+    comparison; then the first step computing in fp32, against (a)'s."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import shard_slices
+    from repro_torch.interop import tree_flatten, tree_map
+    from repro_torch.models.common import is_tuple, shapes_tree
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.train.optimizer import AdamWState
+
+    def local_state(cfg, cell):
+        """This rank's weights (drawn rank by rank) and zero moments."""
+        for r in range(dist.get_world_size()):
+            if r == rank:
+                params = device_local_params(torch, cfg, torch.float32, cell.in_specs[0], mesh)
+            torch.cuda.synchronize()
+            dist.barrier()
+        shapes = shapes_tree(param_specs(cfg))
+
+        def zeros():
+            return tree_map(lambda shp, s: torch.zeros(
+                torch.empty(shp, device="meta")[shard_slices(s, shp, mesh)].shape,
+                dtype=torch.float32, device="cuda"), shapes, cell.in_specs[1].m,
+                is_leaf=is_tuple)
+
+        return params, AdamWState(torch.zeros((), dtype=torch.int32, device="cuda"), zeros(),
+                                  zeros())
+
+    def m1_errs(m1, tag):
+        want = torch.load(work / f"m1{tag}_{arch}_rank{rank}.pt")
+        out = []
+        for j, (got, w) in enumerate(zip(m1, want)):
+            got = m1_sample(got)
+            check(got.shape == w.shape, f"tensor_parallel_zoo (b) {arch}: m{j} shape")
+            out.append(((got - w).norm() / w.norm().clamp_min(1e-30)).item())
+        return out
+
+    cfg, tcfg, cell, batches = tpz_train_cell(torch, mesh, arch)
+    params, state = local_state(cfg, cell)
+    losses, norms, step_ms, m1_err = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with CollectiveCounter() as coll:
+        for i, batch in enumerate(batches):
+            feed = tpt_batch(torch, cell, mesh, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = cell.fn(params, state, feed)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            if i == 0:
+                m1_err = m1_errs(tree_flatten(state.m)[0], "")
+        calls = coll.take()
+    split = [any(e is not None for e in s) for s in tree_flatten(cell.in_specs[0], is_tuple)[0]]
+    torch.save({name: [t.cpu() for t, sp in zip(tree_flatten(tree)[0], split) if not sp]
+                for name, tree in (("params", params), ("m", state.m), ("v", state.v))},
+               work / f"replicated_{arch}_rank{rank}.pt")
+    report = {"arch": cfg.name, "layers": cfg.num_layers, "losses": losses,
+              "grad_norms": norms, "step_ms": step_ms,
+              "collectives_per_step": {op: {k: v / TPZ_TRAIN_STEPS for k, v in c.items()}
+                                       for op, c in calls.items()},
+              "m_step1_rel_err": m1_err, "launches": dict(K.launch_counts),
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "replicated_leaves": len(split) - sum(split), "split_leaves": sum(split)}
+    del params, state
+    torch.cuda.empty_cache()
+    # the first step computing in fp32, held to (a)'s
+    cfg32, _, cell32, _ = tpz_train_cell(torch, mesh, arch, "float32")
+    params, state = local_state(cfg32, cell32)
+    report["m_step1_fp32_rel_err"] = m1_errs(tpz_first_m(torch, cell32, mesh, batches[0],
+                                                         params, state), "32")
+    del params, state
+    torch.cuda.empty_cache()
+    return report
+
+
+def tpz_single(_rank, store, work):
+    """(a) in a process of its own: every model's prefill and decode cells
+    (and phi3.5-moe's prefill cell at its published capacity factor), then
+    every train cell, under NCCL at world size 1 (a (1, 1) mesh); writes
+    its report, logits and greedy tokens."""
+    import os
+
+    import numpy as np
+
+    # cuBLAS's reproducible workspace, for the train parts' deterministic
+    # algorithms: set before the first handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as dist
+
+    K = tpt_process(torch)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+
+    work = Path(work)
+    init_process_group("cuda", f"file://{store}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh("cuda", model=1)
+        report = {"serve": {}, "train": {}}
+        for arch in TPZ_SERVE:
+            rep, logits, fed = tpz_serve(torch, K, FK, mesh, arch, cf=TPZ_NODROP_CF.get(arch),
+                                         reference=True)
+            torch.save(rep.pop("routes"), work / f"routes_{arch}.pt")
+            report["serve"][arch] = rep
+            np.save(work / f"logits_{arch}.npy",
+                    torch.stack([lg.float() for lg in logits]).cpu().numpy())
+            np.save(work / f"tokens_{arch}.npy", fed.cpu().numpy())
+            rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, forced=fed,
+                                       cf=TPZ_NODROP_CF.get(arch), dtype="float32",
+                                       steps=TPZ_FP32_STEPS)
+            torch.save(rep.pop("routes"), work / f"routes32_{arch}.pt")
+            report["serve"][arch]["float32"] = rep
+            np.save(work / f"logits32_{arch}.npy", torch.stack(logits).cpu().numpy())
+            if arch in TPZ_NODROP_CF:
+                rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, prefill_only=True)
+                del rep["routes"]
+                report["serve"][arch]["published_capacity"] = rep
+                np.save(work / f"logits_{arch}_published.npy", logits[0].float().cpu().numpy())
+        for arch in TPZ_TRAIN:
+            report["train"][arch] = tpz_train_single(torch, K, mesh, arch, work)
+        (work / "single.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def tpz_rank(rank, world, store, work):
+    """(b) one of ``world`` gloo ranks sharing the one card: (a)'s cells on a
+    (1, world) ``(data, model)`` mesh, the decode teacher-forced with (a)'s
+    tokens; rank 0 writes the logits, each rank its report."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+    from torch.distributed.device_mesh import init_device_mesh
+
+    K = tpt_process(torch)
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    work = Path(work)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                            timeout=timedelta(seconds=600))
+    try:
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        report = {"rank": rank, "coordinate": list(mesh.get_coordinate()), "serve": {},
+                  "train": {}}
+        for arch in TPZ_SERVE:
+            forced = torch.from_numpy(np.load(work / f"tokens_{arch}.npy"))
+            rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, forced=forced,
+                                       cf=TPZ_NODROP_CF.get(arch))
+            torch.save(rep.pop("routes"), work / f"routes_{arch}_rank{rank}.pt")
+            report["serve"][arch] = rep
+            if rank == 0:
+                np.save(work / f"ranks_logits_{arch}.npy",
+                        torch.stack([lg.float() for lg in logits]).cpu().numpy())
+            rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, forced=forced,
+                                       cf=TPZ_NODROP_CF.get(arch), dtype="float32",
+                                       steps=TPZ_FP32_STEPS)
+            torch.save(rep.pop("routes"), work / f"routes32_{arch}_rank{rank}.pt")
+            report["serve"][arch]["float32"] = rep
+            if rank == 0:
+                np.save(work / f"ranks_logits32_{arch}.npy", torch.stack(logits).cpu().numpy())
+            if arch in TPZ_NODROP_CF:
+                rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, prefill_only=True)
+                del rep["routes"]
+                report["serve"][arch]["published_capacity"] = rep
+                if rank == 0:
+                    np.save(work / f"ranks_logits_{arch}_published.npy",
+                            logits[0].float().cpu().numpy())
+            del logits
+        for arch in TPZ_TRAIN:
+            report["train"][arch] = tpz_train_rank(torch, K, mesh, arch, work, rank)
+        (work / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def route_flips(torch, cfg, batch, want, ranks, steps=TPZ_DECODE_STEPS) -> "torch.Tensor":
+    """[1 + steps, batch] bools: whether the experts of ``ranks``
+    (each rank's route calls; EP ranks route their slices of the tokens,
+    gathered here in rank order) for the token each logits row is read at
+    (the prefill's last position, then each step's token) differ from
+    ``want``'s in any layer."""
+    layers = cfg.num_layers if cfg.num_experts else 0
+    out = torch.zeros((1 + steps, batch), dtype=torch.bool)
+    if not layers:
+        return out
+    check(len(want) == len(ranks[0]) == (1 + steps) * layers,
+          f"tensor_parallel_zoo {cfg.name}: {len(want)} / {len(ranks[0])} route calls")
+    for c, ids in enumerate(want):
+        mine = ranks[0][c] if ranks[0][c].shape == ids.shape else torch.cat([r[c] for r in ranks])
+        per_row = ids.shape[0] // batch                    # tokens a row: the last is read
+        rows = torch.arange(batch) * per_row + per_row - 1
+        out[c // layers] |= (mine[rows] != ids[rows]).any(-1)
+    return out
+
+
+def row_errs(torch, got, want):
+    """||got - want|| / ||want|| of every row (the padded vocabulary, NEG_INF
+    in both, left out)."""
+    live = want.reshape(-1, want.shape[-1])[0] > -1e8
+    g, w = got[..., live].double(), want[..., live].double()
+    return (g - w).norm(dim=-1) / w.norm(dim=-1)
+
+
+def phase_tensor_parallel_zoo(torch):
+    """Phase 14: the MoE and hymba cells tensor-parallel over ``model`` at
+    full width (TPZ_SERVE, TPZ_TRAIN), each part in processes of its own.
+    First, ``flash_attention`` on rank 1's heads at (b)'s prefill shapes
+    (TPZ_FLASH_CASES), as phase 12 (a).  (a) Under NCCL at world size 1: the
+    prefill and decode cells bitwise ``T.prefill`` / ``T.decode_step``, the
+    train cell bitwise ``train_step`` (both under deterministic algorithms);
+    then the same weights and tokens computing in fp32.  (b) Over
+    TPZ_RANKS gloo ranks sharing the card (a (1, 2) mesh: mixtral's expert
+    d_ff, phi3.5-moe's experts, hymba's Mamba channels, and the heads, ffn
+    and vocab, split; the decode caches by sequence), fed (a)'s tokens, held
+    to (a):
+
+    * fp32 (the tensor-parallel arithmetic alone): logits within
+      TPZ_FP32_ROW_TOL (row norm), m after step 1 within TPZ_FP32_M_TOL of
+      (a)'s slice, per leaf;
+    * bf16: logits within TP_LOGITS_ROW_TOL or twice (a)'s own bf16 error
+      (against its fp32 run), whichever is larger; each fed token within
+      TOL of (a)'s top logit; train losses within TPT_LOSS_REL_TOL, grad
+      norms within TPT_GNORM_REL_TOL; m after step 1 within TPT_M_REL_TOL
+      of (a)'s slice or twice (a)'s own bf16 error, per leaf; replicated
+      leaves bitwise across the ranks.
+
+    Logits rows whose token some layer routes to other experts than (a)
+    does (a discrete change of the function, from rounding) are reported,
+    not held; they must be fewer than half.  Every prefill's
+    flash_attention hopper at the rank's head offset.  (b)'s times are
+    gloo's: every collective stages through the host.  Returns the launches
+    of (a) and of each rank, by model, and the flash_attention cases."""
+    import gc
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "dist" / "tp_zoo"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"card": card_name_power()}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out["head_offset"] = tp_flash_cases(torch, flush, TPZ_FLASH_CASES)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("nccl_store", "gloo_store"):
+        (work / name).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(tpz_single, args=(str(work / "nccl_store"), str(work)), nprocs=1,
+                       start_method="spawn", join=True)
+    one = out["world_size_1"] = json.loads((work / "single.json").read_text())
+    one["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp.start_processes(tpz_rank, args=(TPZ_RANKS, str(work / "gloo_store"), str(work)),
+                       nprocs=TPZ_RANKS, start_method="spawn", join=True)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TPZ_RANKS)]
+    held, failures = {}, []
+
+    def hold(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    for arch in TPZ_SERVE:
+        cfg = tpz_config(arch, "serve")
+        load = lambda name: torch.from_numpy(np.load(work / f"{name}_{arch}.npy"))  # noqa: E731
+        routes = {tag: (torch.load(work / f"routes{tag}_{arch}.pt"),
+                        [torch.load(work / f"routes{tag}_{arch}_rank{r}.pt")
+                         for r in range(TPZ_RANKS)]) for tag in ("", "32")}
+        want, got = load("logits"), load("ranks_logits")
+        want32, got32 = load("logits32"), load("ranks_logits32")
+        b = want.shape[1]
+        flipped = route_flips(torch, cfg, b, *routes[""])
+        n32 = 1 + TPZ_FP32_STEPS
+        flipped32 = route_flips(torch, cfg, b, *routes["32"], steps=TPZ_FP32_STEPS)
+        bf16_flipped = route_flips(torch, cfg, b, routes["32"][0],
+                                   [routes[""][0][:len(routes["32"][0])]], steps=TPZ_FP32_STEPS)
+        errs, errs32 = row_errs(torch, got, want), row_errs(torch, got32, want32)
+        # the model's own bf16 error (against fp32 on the same weights and
+        # tokens, its first TPZ_FP32_STEPS steps), where (a) routes alike in
+        # both and (b) as (a)
+        own = row_errs(torch, want[:n32], want32).masked_fill(
+            flipped[:n32] | bf16_flipped, 0).max().item()
+        limit = max(TP_LOGITS_ROW_TOL, 2 * own)
+        tol = TOL["bfloat16"]
+        mine, top = got.argmax(-1), want.max(-1).values
+        gap = top - want.gather(-1, mine[..., None])[..., 0]
+        held_rows = ~flipped
+        hold(int(held_rows.sum()) * 2 > held_rows.numel(),
+             f"tensor_parallel_zoo (b) {arch}: routing differs from (a)'s on "
+             f"{int(flipped.sum())} of {flipped.numel()} rows")
+        hold(float(errs.masked_fill(flipped, 0).max()) <= limit,
+             f"tensor_parallel_zoo (b) {arch}: logits row errors {errs.tolist()} over "
+             f"{limit}, routing differing on {flipped.tolist()}")
+        hold(float(errs32.masked_fill(flipped32, 0).max()) <= TPZ_FP32_ROW_TOL
+             and int((~flipped32).sum()) * 2 > flipped32.numel(),
+             f"tensor_parallel_zoo (b) {arch} fp32: logits row errors {errs32.tolist()}, "
+             f"routing differing on {flipped32.tolist()}")
+        hold(bool((gap[held_rows] <= tol["atol"] + tol["rtol"] * top[held_rows].abs()).all()),
+             f"tensor_parallel_zoo (b) {arch}: a fed token is {gap.max().item()} below (a)'s "
+             "top logit")
+        equal = int((mine == want.argmax(-1)).sum())
+        per = cfg.padded_heads // TPZ_RANKS
+        for r, rep in enumerate(ranks):
+            s = rep["serve"][arch]
+            n = s["launches"]["flash_attention"]
+            hold(n == cfg.num_layers
+                  and s["flash_attention_variants"] == {"hopper": n, "generic": 0}
+                  and s["flash_attention_calls_by_head_offset"] == {str(r * per): n},
+                  f"tensor_parallel_zoo (b) {arch} rank {r}: {s['flash_attention_variants']}, "
+                  f"{s['flash_attention_calls_by_head_offset']}")
+        a = one["serve"][arch]
+        n = a["launches"]["flash_attention"]
+        hold(n == cfg.num_layers and a["flash_attention_variants"] == {"hopper": n, "generic": 0}
+              and a["flash_attention_calls_by_head_offset"] == {"0": n},
+              f"tensor_parallel_zoo (a) {arch}: {a['flash_attention_variants']}, "
+              f"{a['flash_attention_calls_by_head_offset']}")
+        held[arch] = {"logits_row_err": errs.masked_fill(flipped, 0).max(-1).values.tolist(),
+                      "limit": limit, "bf16_own_row_err": own,
+                      "greedy_tokens_equal": equal, "greedy_tokens": mine.numel(),
+                      "rows_routed_otherwise": int(flipped.sum()), "rows": flipped.numel(),
+                      "their_logits_row_err": errs[flipped].tolist(),
+                      "float32": {"logits_row_err": float(errs32.masked_fill(flipped32, 0).max()),
+                                  "rows_routed_otherwise": int(flipped32.sum()),
+                                  "their_logits_row_err": errs32[flipped32].tolist()}}
+        if arch in TPZ_NODROP_CF:
+            w = torch.from_numpy(np.load(work / f"logits_{arch}_published.npy"))
+            g = torch.from_numpy(np.load(work / f"ranks_logits_{arch}_published.npy"))
+            held[arch]["published_capacity"] = {
+                "capacity_factor": tpz_config(arch, "serve").capacity_factor,
+                "logits_row_err": logits_row_err(torch, g, w),
+                "drop_frac_world_size_1": a["published_capacity"].get("prefill_drop_frac"),
+                "drop_frac_by_rank": [rep["serve"][arch]["published_capacity"]
+                                      .get("prefill_drop_frac") for rep in ranks],
+                "note": "capacity is per dispatch shard: not held"}
+    for arch in TPZ_TRAIN:
+        a = one["train"][arch]
+        for r, rep in enumerate(ranks):
+            t = rep["train"][arch]
+            loss_err = max(abs(x / y - 1) for x, y in zip(t["losses"], a["losses"]))
+            norm_err = max(abs(x / y - 1) for x, y in zip(t["grad_norms"], a["grad_norms"]))
+            t.update(loss_rel_err=loss_err, grad_norm_rel_err=norm_err)
+            hold(loss_err <= TPT_LOSS_REL_TOL,
+                  f"tensor_parallel_zoo (b) {arch} rank {r}: losses {t['losses']} vs "
+                  f"{a['losses']}")
+            hold(norm_err <= TPT_GNORM_REL_TOL,
+                  f"tensor_parallel_zoo (b) {arch} rank {r}: grad norms {t['grad_norms']} vs "
+                  f"{a['grad_norms']}")
+            # each leaf within TPT_M_REL_TOL of (a)'s or within twice (a)'s own bf16
+            # error (against fp32 compute), whichever is larger; in fp32 within
+            # TPZ_FP32_M_TOL
+            own = a["m_step1_bf16_vs_fp32_rel_err"]
+            over = {j: (e, own[j]) for j, e in enumerate(t["m_step1_rel_err"])
+                    if e > max(TPT_M_REL_TOL, 2 * own[j])}
+            t["m_step1_max_rel_err"] = max(t["m_step1_rel_err"])
+            t["m_step1_fp32_max_rel_err"] = max(t["m_step1_fp32_rel_err"])
+            hold(not over, f"tensor_parallel_zoo (b) {arch} rank {r}: m after step 1 off "
+                           f"(a)'s at leaves (error, (a)'s own bf16 error) {over}")
+            hold(t["m_step1_fp32_max_rel_err"] <= TPZ_FP32_M_TOL,
+                 f"tensor_parallel_zoo (b) {arch} rank {r} fp32: m after step 1 "
+                 f"{t['m_step1_fp32_rel_err']}")
+            hold(t["launches"]["flash_attention"] == 0,
+                  f"tensor_parallel_zoo (b) {arch} rank {r}: flash_attention launched")
+            hold(t["losses"] == ranks[0]["train"][arch]["losses"],
+                  f"tensor_parallel_zoo (b) {arch}: ranks' losses differ")
+        rep0, rep1 = (torch.load(work / f"replicated_{arch}_rank{r}.pt")
+                      for r in range(TPZ_RANKS))
+        hold(all(torch.equal(x, y) for k in rep0 for x, y in zip(rep0[k], rep1[k]))
+              and ranks[0]["train"][arch]["replicated_leaves"] > 0,
+              f"tensor_parallel_zoo (b) {arch}: replicated leaves differ across ranks")
+        held.setdefault(arch, {})["train_replicated_leaves_bitwise"] = True
+    out["gloo_ranks"] = {"ranks": ranks, "wall_s": wall, "held": held,
+                         "note": "gloo stages every collective through the host: these "
+                                 "times are not NVLink's; collectives counted over groups "
+                                 "of more than one rank"}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["failures"] = failures
+    emit({"phase": "tensor_parallel_zoo", **out})
+    check(not failures, "tensor_parallel_zoo: " + "; ".join(failures))
+    return ({arch: s["launches"] for arch, s in one["serve"].items()},
+            [{arch: s["launches"] for arch, s in rep["serve"].items()} for rep in ranks],
+            out["head_offset"])
+
+
 def main() -> int:
     import torch
 
@@ -3694,6 +4544,12 @@ def main() -> int:
     # ranks sharing the one card
     tpt_launches, tpt_rank_launches = phase_tensor_parallel_train(torch)
 
+    # 14. the MoE and hymba cells tensor-parallel: mixtral-8x7b (TP-MoE),
+    # phi3.5-moe (EP) and hymba-1.5b (its Mamba mixer split) at full width,
+    # prefill, decode and train, at world size 1 (NCCL, bitwise) and over 2
+    # gloo ranks sharing the one card
+    tpz_launches, tpz_rank_launches, tpz_cases = phase_tensor_parallel_zoo(torch)
+
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
     rows = []
@@ -3714,7 +4570,12 @@ def main() -> int:
                                         n[name] for n in tp_rank_launches],
                                     "tensor_parallel_train": {
                                         "world_size_1": tpt_launches[name],
-                                        "gloo_ranks": [n[name] for n in tpt_rank_launches]}},
+                                        "gloo_ranks": [n[name] for n in tpt_rank_launches]},
+                                    "tensor_parallel_zoo": {
+                                        "world_size_1": {a: n[name]
+                                                         for a, n in tpz_launches.items()},
+                                        "gloo_ranks": [{a: n[name] for a, n in r.items()}
+                                                       for r in tpz_rank_launches]}},
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
@@ -3746,16 +4607,23 @@ def main() -> int:
                                               for c in rest.values())
             # phase 12 (a): one rank's heads (head_offset) at full width; the
             # launches are phase 12 (c)'s on the rank that shard stands for
+            # and phase 14's: their launches are rank 1's in phase 14 (b)
+            def launches_of(c):
+                if c["case"] == "qwen2_4096_tp2":
+                    return tp_rank_launches[1]["flash_attention"]
+                if c["case"] in TPZ_FLASH_ARCH:
+                    return tpz_rank_launches[1][TPZ_FLASH_ARCH[c["case"]]]["flash_attention"]
+                return None
+
             row["tensor_parallel_cases"] = [
-                {"case": c["case"], "dtype": c["dtype"], "q": c["q"],
+                {"case": c["case"], "dtype": c["dtype"], "q": c["q"], "window": c["window"],
                  "head_offset": c["timed_offset"], "variant": c["variant"],
-                 "launches": (tp_rank_launches[1]["flash_attention"]
-                              if c["case"] == "qwen2_4096_tp2" else None),
+                 "launches": launches_of(c),
                  "full_launch_ms": c["full_launch_ms"],
                  "full_launch_share_ms": c["full_launch_share_ms"],
                  **{k: c[k] for k in ("max_abs_err", "max_row_rel_err", "ms", "generic_ms",
                                       "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-                for c in tp_cases]
+                for c in tp_cases + tpz_cases]
         if name in COPY_MAIN_CASE:
             # the serve path's call (both pools, every layer: two launches),
             # the parent's call pattern for it, and the launches by variant

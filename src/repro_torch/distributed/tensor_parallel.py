@@ -26,6 +26,10 @@ of the value).  So:
   backward the sum of the ranks' partial gradients.  It goes wherever a
   replicated tensor enters work that each rank does on its own shard: the
   input of a column-split weight, KV gathered for a rank's own heads.
+* ``from_copies`` (rank-local work whose result every rank computed whole
+  -> replicated): identity forward, backward ``1/n`` of the gradient, so
+  the ``n`` copies pass the whole gradient into the rank-local work once
+  between them (expert-parallel MoE on tokens it cannot split).
 
 Where no ``DeviceMesh`` is active, or the axis is not split (a rule that maps it to
 nothing, or a size its mesh axes do not divide), the shard is the whole
@@ -101,7 +105,7 @@ def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group`` in fp32 at least (bf16 / fp16 partials are
     widened, summed and rounded once), into a new tensor: the input may be
     saved for a backward."""
-    wide = t.clone() if t.dtype == torch.float32 else t.float()
+    wide = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t.clone()
     dist.all_reduce(wide, op=dist.ReduceOp.SUM, group=group)
     return wide.to(t.dtype)
 
@@ -149,6 +153,20 @@ class _ToLocalRegion(torch.autograd.Function):
         return _sum_over(grad, ctx.group), None
 
 
+class _FromCopies(torch.autograd.Function):
+    """Copies -> replicated: the identity forward, ``1/n`` of the gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t, parts):
+        ctx.parts = parts
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.parts, None
+
+
 def all_reduce_sum(t: torch.Tensor, shard: Shard) -> torch.Tensor:
     """The sum over the ranks of ``shard``'s axis, in fp32 at least: bf16 /
     fp16 partial products are widened, summed and rounded once.  Backward:
@@ -181,3 +199,14 @@ def to_local_region(t: torch.Tensor, shard: Shard) -> torch.Tensor:
     if not shard.split:
         return t
     return _ToLocalRegion.apply(t, _group(shard))
+
+
+def from_copies(t: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """``t``, the same value computed whole on every rank of ``shard``'s
+    axis by work that reads rank-local shards, as a replicated tensor: the
+    identity forward; backward, ``1/n`` of its (whole) gradient on each
+    rank, so the ``n`` copies pass the whole gradient into that work once
+    between them."""
+    if not shard.split:
+        return t
+    return _FromCopies.apply(t, shard.parts)

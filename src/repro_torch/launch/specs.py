@@ -13,12 +13,13 @@ every output under the cell's specs; the cell reduces what crosses ranks
 itself:
 
 * train: data parallel over the batch's mesh axes with ZeRO-1 AdamW
-  moments and, over ``model`` > 1, tensor parallel for the dense decoders
-  (the weights split as for prefill; the loss's vocabulary split too,
-  ``train/loss.py``).  Each rank runs ``step_grads`` on its parameter
-  shards under the mesh and the rules the cell was built with: the
-  reference's sharding constraints are collectives whose backward is the
-  one GSPMD derives (``distributed/tensor_parallel.py``).  Each rank's
+  moments and, over ``model`` > 1, tensor parallel for the dense decoders,
+  the MoE models and hymba (the weights split as for prefill; the loss's
+  vocabulary split too, ``train/loss.py``).  Each rank runs
+  ``step_grads`` on its parameter shards under the mesh and the rules the
+  cell was built with: the reference's sharding constraints are
+  collectives whose backward is the one GSPMD derives
+  (``distributed/tensor_parallel.py``).  Each rank's
   gradients are weighted by its share of the loss tokens and summed over
   the batch's axes, so the result is the gradient of the global mean loss
   (as GSPMD computes it), not the mean of shard means.  ``global_norm``
@@ -31,16 +32,18 @@ itself:
   ``train_step``'s.
 * prefill / decode: ``T.prefill`` / ``T.decode_step`` under the mesh and
   the rules the cell was built with.  Over ``model`` > 1 the dense
-  decoders run tensor-parallel on their parameter shards (heads, KV heads,
-  ffn and vocab split, the decode cache split by sequence), the reference's
+  decoders, the MoE models and hymba run tensor-parallel on their parameter
+  shards (heads, KV heads, ffn and vocab split; TP-MoE's expert d_ff or
+  EP's experts; hymba's Mamba channels; the decode cache split by sequence,
+  the Mamba states by channel), the reference's
   sharding constraints made explicit collectives (``models/blocks.py``,
   ``distributed/tensor_parallel.py``).  The logits are gathered to the whole
   vocabulary; the cache comes back as this rank's shard (the prefill's split
   by KV heads where the rules split them, the decode's by sequence).
 
 What is not ported raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item (:func:`_require_executable`): every cell of the other families (MoE,
-hymba, xLSTM, M-RoPE, encoder-decoder) over a mesh axis of size > 1 that a
+item (:func:`_require_executable`): every cell of the other families
+(xLSTM, M-RoPE, encoder-decoder) over a mesh axis of size > 1 that a
 parameter or cache spec names, and a decode cache split by KV heads.
 """
 
@@ -274,8 +277,6 @@ class Cell:
 
 # families whose tensor-parallel cells are not ported: (name, ROADMAP.md item)
 TP_TODO = {
-    "moe": ("MoE (expert / expert_ffn over model)", "Queue 1 item 2 (b)"),
-    "hymba": ("hymba's SSM (ssm_inner over model)", "Queue 1 item 2 (c)"),
     "xlstm": ("xLSTM (mLSTM / sLSTM blocks)", "Queue 1 item 2 (d)"),
     "mrope": ("qwen2-vl's M-RoPE embeddings path", "Queue 1 item 2 (e)"),
     "encdec": ("the encoder-decoder's cross-attention", "Queue 1 item 2 (f)"),
@@ -284,8 +285,9 @@ TP_HEAD_CACHE_TODO = "Queue 1 item 2 (g)"     # a decode cache split by KV heads
 
 
 def _family(cfg: ModelConfig) -> Optional[str]:
-    """The :data:`TP_TODO` family of ``cfg``, or None for a dense decoder
-    (token input, RoPE, every segment ``dense``)."""
+    """The family of ``cfg`` (``moe``, ``hymba`` or a :data:`TP_TODO`
+    one), or None for a dense decoder (token input, RoPE, every segment
+    ``dense``)."""
     kinds = {seg.kind for seg in cfg.decoder_plan()}
     if cfg.is_encdec:
         return "encdec"
@@ -315,7 +317,7 @@ def _require_executable(cfg: ModelConfig, kind: str, mesh, specs) -> None:
         raise TypeError("a cell executes on a DeviceMesh; a MeshSpec only accounts")
     big = _split_axes(mesh, specs)
     family = _family(cfg)
-    if big and family is not None:
+    if big and family in TP_TODO:
         what, item = TP_TODO[family]
         raise NotImplementedError(
             f"the {kind} cell of {cfg.name} over {big}: tensor-parallel {what} is not "
@@ -367,6 +369,18 @@ def _train_fn(cfg, tcfg, mesh, rules, p_specs, o_specs, b_specs, params, opt_sta
     return params, opt_state, metrics
 
 
+# cache entries a rank computes on its own channels (the Mamba states): the
+# prefill cell holds them as this rank's shards from the start
+RANK_LOCAL_STATES = ("ssm", "conv")
+
+
+def _cache_shards(cache, c_local, mesh, rank_local: bool) -> list:
+    """Each segment's entries of ``RANK_LOCAL_STATES`` (``rank_local``) or
+    the others at this rank's shard; the rest as they are."""
+    return [{k: (local_tree(t, seg_s[k], mesh) if (k in RANK_LOCAL_STATES) == rank_local
+                 else t) for k, t in seg.items()} for seg, seg_s in zip(cache, c_local)]
+
+
 def _prefill_fn(cfg, shape, mesh, rules, p_specs, c_specs, params, batch):
     c_local = _unbatched(c_specs)
     _require_executable(cfg, "prefill", mesh, (p_specs, c_local))
@@ -375,9 +389,10 @@ def _prefill_fn(cfg, shape, mesh, rules, p_specs, c_specs, params, batch):
         cache = T.init_cache(cfg, first.shape[0], shape.seq_len,
                              torch_dtype(cfg.compute_dtype), device=first.device,
                              memory_len=shape.seq_len if cfg.is_encdec else None)
+        cache = _cache_shards(cache, c_local, mesh, rank_local=True)
         last_hidden, cache = T.prefill(cfg, params, batch, cache)
         logits = T.lm_logits(cfg, params, last_hidden)
-    return logits, local_tree(cache, c_local, mesh)
+    return logits, _cache_shards(cache, c_local, mesh, rank_local=False)
 
 
 def _decode_fn(cfg, shape, mesh, rules, p_specs, c_specs, params, cache, tokens, cur_pos):

@@ -52,6 +52,11 @@ backward GSPMD gives them (``distributed/tensor_parallel.py``):
   ``d_ff``, ``w_down`` / ``w_out`` row shards; the partial products are
   summed, then ``b_out`` is added once; the input's partial gradients are
   summed in the backward.
+* MoE (``models/moe.py``, shard-local): TP-MoE's experts split on d_ff,
+  EP's on the expert axis, over ``model``.
+* hymba's Mamba mixer on ``ssm_inner`` channels (``models/ssm.py``), its
+  states split the same way; its output, as the attention's, is summed
+  before the branch's RMS norm.
 
 Under M-RoPE the contiguous cache is filled by sequence index, and the
 ``pos`` row holds each entry's temporal position, which the decode mask
@@ -434,6 +439,21 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return all_reduce_sum(swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), fs)
 
 
+# ---------------------------------------------------------------- Mamba
+
+
+def _ssm_shard(cfg: ModelConfig) -> Shard:
+    """This rank's ``ssm_inner`` channels of the Mamba mixer.  ``in_proj``
+    splits its ``2·d_inner`` columns by the same rule: a split of the one
+    without the other (``d_inner`` not divisible, ``2·d_inner`` divisible)
+    is refused."""
+    ss = shard_of("ssm_inner", cfg.d_inner)
+    if shard_of("ssm_inner", 2 * cfg.d_inner).split != ss.split:
+        raise NotImplementedError(f"the Mamba mixer of {cfg.name}: d_inner {cfg.d_inner} "
+                                  f"does not split evenly where 2·d_inner does")
+    return ss
+
+
 # --------------------------------------------------------------- block kinds
 
 
@@ -506,13 +526,16 @@ def block_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
         normed = rms_norm(x, p["ln1"], cfg.norm_eps)
         h_attn, new_attn_cache = attn_apply(cfg, seg, p["attn"], normed, ctx)
         mc = ctx.cache if ctx.cache is not None else {}
+        ss = _ssm_shard(cfg)
         if ctx.mode == "decode":
             h_mamba, (ssm_s, conv_s) = mamba_decode(
-                p["mamba"], normed, mc.get("ssm"), mc.get("conv"), cfg.dt_rank_actual)
+                p["mamba"], normed, mc.get("ssm"), mc.get("conv"), cfg.dt_rank_actual, ss)
         else:
             h_mamba, (ssm_s, conv_s) = mamba_forward(
                 p["mamba"], normed, mc.get("ssm"), mc.get("conv"),
-                cfg.dt_rank_actual, cfg.ssm_chunk)
+                cfg.dt_rank_actual, cfg.ssm_chunk, ss)
+        # both branches come back summed over the mesh: the RMS norms read
+        # whole vectors
         fused = 0.5 * (rms_norm(h_attn, p["ln_attn_out"], cfg.norm_eps) * p["beta_attn"]
                        + rms_norm(h_mamba, p["ln_mamba_out"], cfg.norm_eps) * p["beta_mamba"])
         x = x + fused

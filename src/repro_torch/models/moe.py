@@ -20,10 +20,12 @@ Aux losses (returned; ``train_step`` adds them to the loss): load-balance
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..distributed.tensor_parallel import (Shard, all_gather, all_reduce_sum, axis_shard,
+                                           from_copies, to_local_region)
 from .common import ParamSpec, fan_in_init, normal_init
 
 
@@ -82,10 +84,15 @@ def expert_ffn(p: dict, xg: torch.Tensor) -> torch.Tensor:
 
 class _Dispatch:
     """The sort/gather dispatch of tokens x2 [T, d] into an [E, C, d]
-    capacity block, and what combining the experts' outputs back needs."""
+    capacity block, and what combining the experts' outputs back needs.
+
+    With ``region`` (TP-MoE over a split ``model`` axis) the routing is
+    replicated work, and the token rows gathered into the block and the
+    combine weights enter each rank's work on its d_ff slice through
+    ``to_local_region``: their partial gradients are summed."""
 
     def __init__(self, router: torch.Tensor, x2: torch.Tensor, top_k: int,
-                 capacity_factor: float):
+                 capacity_factor: float, region: Optional[Shard] = None):
         T, d = x2.shape
         E = router.shape[1]
         K = top_k
@@ -108,6 +115,8 @@ class _Dispatch:
         self.tok_idx = order // K
         self.slot = sorted_e * cap + pos_in_e                   # [T*K] flat slot
         self.w_sorted = top_w.reshape(-1)[order]
+        if region is not None:
+            x2, self.w_sorted = to_local_region(x2, region), to_local_region(self.w_sorted, region)
 
         # token index of each slot (T: the zero row); dropped assignments all
         # write one extra slot, cut off after (no host sync for a mask)
@@ -151,8 +160,10 @@ def _moe_forward_dense(p: dict, x: torch.Tensor, top_k: int,
 
 
 def _mean_over(v: torch.Tensor, groups) -> torch.Tensor:
-    """``pmean`` over the groups' product (autograd-aware: gradients flow
-    back through the sums)."""
+    """``pmean`` over the batch's groups' product.  Its backward sums the
+    cotangents over the groups (``torch.distributed.nn``'s ``all_reduce``):
+    the train cell weights each rank's gradients by its share of the loss
+    and sums them over the same axes (``launch/specs.py``)."""
     from torch.distributed.nn.functional import all_reduce
 
     n = 1
@@ -172,51 +183,65 @@ def _moe_forward_shard_local(p: dict, x: torch.Tensor, top_k: int,
     at a capacity factor that drops tokens this is not the dense dispatch
     (it is the reference's ``shard_map`` form).
 
-    TP-MoE: ``w_gate`` / ``w_up`` / ``w_down`` are this rank's d_ff slice;
-    each rank runs the complete dispatch on its tokens against it, and the
-    only collective is the sum of the partial outputs over ``model``.
+    TP-MoE: ``w_gate`` / ``w_up`` / ``w_down`` are this rank's d_ff slice.
+    Every rank routes all its tokens (replicated work) and runs the
+    complete dispatch against its slice; the partial outputs leave through
+    ``all_reduce_sum``.
 
     EP-MoE: the weights are this rank's ``E / n`` experts.  Each ``model``
-    peer dispatches a distinct ``1/n`` of the tokens (when ``n`` divides
-    them), an all-to-all exchanges expert slots for token shards, each rank
-    runs its own experts, a reverse all-to-all returns the outputs, and an
-    all-gather reassembles the token slices.
+    peer routes and dispatches a distinct ``1/n`` of the tokens (when ``n``
+    divides them), an all-to-all exchanges expert slots for token shards,
+    each rank runs its own experts, a reverse all-to-all returns the
+    outputs, and an all-gather reassembles the token slices.  Tokens ``n``
+    does not divide are routed whole on every peer, and the outputs, the
+    same on every peer, leave through ``from_copies``.
 
-    The aux losses are averaged over the data groups (and over ``model``
-    where the tokens were split), as the reference's ``pmean``.  The
-    collectives are ``torch.distributed.nn.functional``'s, so gradients
-    flow through them.
+    The gradients follow ``distributed/tensor_parallel.py``'s rule over
+    ``model`` (a replicated tensor carries its whole gradient on every
+    rank): what enters rank-local work does so through
+    ``to_local_region``.  The aux losses are averaged over ``model`` where
+    its peers routed distinct tokens (``all_reduce_sum / n``), and over the
+    data groups by ``_mean_over``, as the reference's ``pmean``.
     """
-    from torch.distributed.nn.functional import all_reduce, all_to_all_single
+    from torch.distributed.nn.functional import all_to_all_single
+
+    from ..distributed.sharding import active_rules, entry_axes
 
     data_groups = [mesh.get_group(a) for a in ("pod", "data") if a in mesh.mesh_dim_names]
-    model = mesh.get_group("model")
+    ms = axis_shard("model")
+    rule = active_rules().get("expert" if moe_sharding == "ep" else "expert_ffn")
+    if ms.split and "model" not in entry_axes(rule):
+        raise NotImplementedError(f"shard-local MoE over model {ms.parts} with its experts' "
+                                  f"rule {rule!r}: the weights are not split over model")
     b, s, d = x.shape
 
-    if moe_sharding == "tp":
-        y, aux = _moe_forward_dense(p, x, top_k, capacity_factor)
-        # w_down rows are a d_ff shard -> partial outputs; finish the TP sum
-        y = all_reduce(y, group=model)
-        return y, {k: _mean_over(v, data_groups) for k, v in aux.items()}
+    def leave(y, aux):
+        aux = {k: _mean_over(v, data_groups) for k, v in aux.items()}
+        return y.reshape(b, s, d).to(x.dtype), aux
 
-    n = mesh.size(mesh.mesh_dim_names.index("model"))
+    if moe_sharding == "tp" or not ms.split:
+        disp = _Dispatch(p["router"], x.reshape(b * s, d), top_k, capacity_factor, region=ms)
+        y = disp.combine(expert_ffn(p, disp.xg).reshape(-1, d)).to(x.dtype)
+        # w_down rows are a d_ff shard -> partial outputs; finish the TP sum
+        return leave(all_reduce_sum(y, ms), disp.aux())
+
+    n = ms.parts
     e_local = p["w_gate"].shape[0]
-    x_full = x.reshape(b * s, d)
+    x_full = to_local_region(x.reshape(b * s, d), ms)
+    router = to_local_region(p["router"], ms)
     # x is replicated over "model": each model peer must dispatch a
     # DISTINCT 1/n token slice, else every peer ships identical slots and
     # expert compute inflates n×
-    split = x_full.shape[0] % n == 0 and x_full.shape[0] >= n
-    if split:
-        t = x_full.shape[0] // n
-        mi = mesh.get_local_rank("model")
-        x2 = x_full[mi * t:(mi + 1) * t]
-    else:
-        x2 = x_full
-    disp = _Dispatch(p["router"], x2, top_k, capacity_factor)
+    tokens = x_full.shape[0]
+    split = tokens % n == 0 and tokens >= n
+    tok = Shard(ms.offset * tokens // n, tokens // n, tokens, ms.axis, n) if split else None
+    disp = _Dispatch(router, x_full[tok.slice] if split else x_full, top_k, capacity_factor)
     cap = disp.cap
 
     # exchange: this rank sends its slots for expert-block j to peer j;
-    # afterwards dim 0 indexes the SOURCE peer
+    # afterwards dim 0 indexes the SOURCE peer.  The backward of each
+    # all-to-all is the reverse exchange.
+    model = mesh.get_group("model")
     xg = disp.xg.reshape(n, e_local, cap, d).contiguous()
     xg = all_to_all_single(torch.empty_like(xg), xg, group=model)
     xg = xg.transpose(0, 1).reshape(e_local, n * cap, d)
@@ -225,14 +250,9 @@ def _moe_forward_shard_local(p: dict, x: torch.Tensor, top_k: int,
     eo = eo.reshape(e_local, n, cap, d).transpose(0, 1).contiguous()
     eo = all_to_all_single(torch.empty_like(eo), eo, group=model)
     y = disp.combine(eo.reshape(-1, d))
-    if split:
-        # reassemble the full token range from the model-axis slices: an
-        # all-gather as an all-to-all of n copies (its backward sums each
-        # slice's cotangents over the peers).  torch's autograd all_gather
-        # is not used: on gloo its backward scatters from group-local ranks
-        # as if they were global ones, which fails on a subgroup.
-        y = all_to_all_single(torch.empty((n * y.shape[0], d), dtype=y.dtype, device=y.device),
-                              y.repeat(n, 1), group=model)
-    red = data_groups + [model] if split else data_groups
-    aux = {k: _mean_over(v, red) for k, v in disp.aux().items()}
-    return y.reshape(b, s, d).to(x.dtype), aux
+    aux = disp.aux()
+    if not split:
+        return leave(from_copies(y, ms), {k: from_copies(v, ms) for k, v in aux.items()})
+    # the full token range from the model-axis slices (backward: this
+    # rank's slice); the aux losses averaged over the slices
+    return leave(all_gather(y, 0, tok), {k: all_reduce_sum(v, ms) / n for k, v in aux.items()})

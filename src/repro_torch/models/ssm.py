@@ -14,15 +14,26 @@ doubling scan over the chunk axis does the same job with the same combine,
 ``(a1, b1) ∘ (a2, b2) = (a1 a2, a2 b1 + b2)``.  The state stays fp32, as
 in the reference; a chunk is [B, chunk, d_inner, N] fp32.  No kernel: the
 JAX package reaches no ``pallas_call`` here either.
+
+Tensor-parallel (a ``Shard`` of ``ssm_inner`` over ``model``): each rank
+holds its channels of ``in_proj``'s two halves' columns, ``conv_w``,
+``conv_b``, ``dt_bias``, ``A_log``, ``D``, ``dt_proj``'s columns, the rows
+of ``x_proj`` and ``out_proj``, and of the states.  The conv and the scan
+are per channel and run on the rank's own; ``x_c @ x_proj`` and
+``y @ out_proj`` are partial products, summed (``distributed/
+tensor_parallel.py``).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
+from ..distributed.tensor_parallel import Shard, all_gather, all_reduce_sum, to_local_region
 from .common import ParamSpec, fan_in_init, normal_init, ones_init, zeros_init
 
 
@@ -156,9 +167,32 @@ def mamba_param_specs(d_model: int, d_inner: int, ssm_state: int,
     }
 
 
-def _project(p: dict, x_c: torch.Tensor, dt_rank: int):
-    """x_c [.., d_inner] -> (dt, B, C, A, D): the scan's inputs."""
+def _in_proj(p: dict, x: torch.Tensor, shard: Optional[Shard]):
+    """x [.., d_model] -> (x_in, z) [.., d_inner] at this rank's channels.
+
+    Split over ``ssm_inner``, ``in_proj`` [d_model, 2·d_inner] is cut into
+    contiguous column shards, which do not pair ``x_in`` with ``z`` (over 2
+    ranks, rank 0 holds all of ``x_in`` and rank 1 all of ``z``).  So the
+    ranks' products are gathered whole and each rank takes its own channels
+    of both halves; ``x`` enters the column shard through
+    ``to_local_region``, as the gathered product enters the rank's
+    channels."""
+    if shard is None or not shard.split:
+        return torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    cols = dataclasses.replace(shard, offset=2 * shard.offset, size=2 * shard.size,
+                               total=2 * shard.total)
+    xz = to_local_region(all_gather(to_local_region(x, shard) @ p["in_proj"], -1, cols), shard)
+    z0 = shard.total + shard.offset
+    return xz[..., shard.slice], xz[..., z0:z0 + shard.size]
+
+
+def _project(p: dict, x_c: torch.Tensor, dt_rank: int, shard: Optional[Shard] = None):
+    """x_c [.., d_inner] -> (dt, B, C, A, D): the scan's inputs.  Split over
+    ``ssm_inner``, ``x_c @ x_proj`` is a partial product: it is summed, and
+    enters the rank's channels (``dt_proj``'s columns) and its scan."""
     dbc = x_c @ p["x_proj"]
+    if shard is not None and shard.split:
+        dbc = to_local_region(all_reduce_sum(dbc, shard), shard)
     n = p["A_log"].shape[1]
     dt, B, C = torch.split(dbc, [dt_rank, n, n], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
@@ -166,34 +200,41 @@ def _project(p: dict, x_c: torch.Tensor, dt_rank: int):
     return dt, B, C, A, p["D"].float()
 
 
-def mamba_forward(p: dict, x: torch.Tensor, ssm_state, conv_state,
-                  dt_rank: int, chunk_size: int = 128):
-    """Full-sequence mamba mixer.  x: [b,s,d_model].
+def _out_proj(p: dict, y: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    out = y @ p["out_proj"]
+    return out if shard is None else all_reduce_sum(out, shard)
 
-    Returns (y [b,s,d_model], (ssm_state, conv_state)).
+
+def mamba_forward(p: dict, x: torch.Tensor, ssm_state, conv_state,
+                  dt_rank: int, chunk_size: int = 128, shard: Optional[Shard] = None):
+    """Full-sequence mamba mixer.  x: [b,s,d_model] (replicated over the
+    mesh); ``shard``: this rank's ``ssm_inner`` channels (None: whole).
+
+    Returns (y [b,s,d_model], (ssm_state, conv_state)), the states this
+    rank's channels.
     """
-    xz = x @ p["in_proj"]
-    x_in, z = torch.chunk(xz, 2, dim=-1)
+    x_in, z = _in_proj(p, x, shard)
     x_c, conv_state = causal_conv1d(x_in, p["conv_w"], p["conv_b"], conv_state)
     x_c = F.silu(x_c)
-    dt, B, C, A, D = _project(p, x_c, dt_rank)
+    dt, B, C, A, D = _project(p, x_c, dt_rank, shard)
     y, ssm_state = selective_scan(x_c, dt, B, C, A, D, ssm_state, chunk_size=chunk_size)
     y = y * F.silu(z)
-    return y @ p["out_proj"], (ssm_state, conv_state)
+    return _out_proj(p, y, shard), (ssm_state, conv_state)
 
 
-def mamba_decode(p: dict, x: torch.Tensor, ssm_state, conv_state, dt_rank: int):
-    """One-token mamba step.  x: [b,1,d_model]."""
-    xz = x[:, 0] @ p["in_proj"]
-    x_in, z = torch.chunk(xz, 2, dim=-1)
+def mamba_decode(p: dict, x: torch.Tensor, ssm_state, conv_state, dt_rank: int,
+                 shard: Optional[Shard] = None):
+    """One-token mamba step.  x: [b,1,d_model]; ``shard`` as
+    :func:`mamba_forward`'s."""
+    x_in, z = _in_proj(p, x[:, 0], shard)
     # conv over (state ++ x): one output step
     xp = torch.cat([conv_state.to(x.dtype), x_in[:, None]], dim=1)   # [b,K,d]
     x_c = torch.einsum("bkd,kd->bd", xp.float(), p["conv_w"].float()) + p["conv_b"].float()
     x_c = F.silu(x_c).to(x.dtype)
-    dt, B, C, A, D = _project(p, x_c, dt_rank)
+    dt, B, C, A, D = _project(p, x_c, dt_rank, shard)
     y, ssm_state = selective_scan_decode(x_c, dt, B, C, A, D, ssm_state)
     y = y * F.silu(z)
-    return (y @ p["out_proj"])[:, None], (ssm_state, xp[:, 1:])
+    return _out_proj(p, y, shard)[:, None], (ssm_state, xp[:, 1:])
 
 
 def mamba_state_init(batch: int, d_inner: int, ssm_state: int, d_conv: int,

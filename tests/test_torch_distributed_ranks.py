@@ -18,7 +18,8 @@ sliced off), so every rank works in every case.
 * Shard-local MoE, TP and EP, on (1, 2) and (2, 2) at capacity factor 1.0
   (tokens dropped, asserted): outputs and aux within 1e-5 of the
   reference's ``_moe_forward_shard_local`` on the same mesh shape; one
-  backward through EP on (2, 2) against dense autograd at capacity 8.0.
+  backward through EP on (2, 2) against dense autograd at capacity 8.0,
+  the loss whole on every rank.
 * ``reshard_tree``: each rank's local shard equal to the reference's
   device shard at its mesh coordinate.
 * ``compressed_all_reduce`` over 2 ranks: the mean of the two ranks'
@@ -201,8 +202,10 @@ def rank_moe(out):
             for k, v in aux.items():
                 out[f"{key}/{k}"] = np.asarray(float(v))
 
-    # one backward through EP on (2, 2) against dense autograd at capacity 8.0:
-    # each rank's loss is its replica's share (1 / n_model) of y . cot
+    # one backward through EP on (2, 2) against dense autograd at capacity 8.0,
+    # each rank's loss whole (y . cot over its data shard's tokens): the
+    # gradients of x and the router, replicated over model, whole on every
+    # model rank, summed over data where the ranks hold distinct tokens
     mesh = rank_mesh((2, 2), ("data", "model"))
     d, m = mesh.get_coordinate()
     p, x = moe_inputs("ep")
@@ -217,10 +220,8 @@ def rank_moe(out):
     xl = torch.from_numpy(x[d * bl:(d + 1) * bl].copy()).requires_grad_(True)
     with use_mesh(mesh):
         yl, _ = moe_forward(pl, xl, MOE_K, 8.0, shard_local=True, moe_sharding="ep")
-    ((yl * torch.from_numpy(cot[d * bl:(d + 1) * bl])).sum() / 2).backward()
+    (yl * torch.from_numpy(cot[d * bl:(d + 1) * bl])).sum().backward()
     gx, grouter = xl.grad.clone(), pl["router"].grad.clone()
-    dist.all_reduce(gx, group=mesh.get_group("model"))
-    dist.all_reduce(grouter, group=mesh.get_group("model"))
     dist.all_reduce(grouter, group=mesh.get_group("data"))
     errs = [(yl.detach() - y.detach()[d * bl:(d + 1) * bl]).abs().max(),
             (gx - xf.grad[d * bl:(d + 1) * bl]).abs().max(),

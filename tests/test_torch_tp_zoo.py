@@ -1,0 +1,630 @@
+"""PyTorch port: the MoE and hymba cells tensor-parallel over ``model`` > 1,
+over 4 gloo ranks on the CPU, against the JAX package's jitted
+``build_cell`` on the same mesh shapes; and the gradients of the
+shard-local MoE and of the split Mamba mixer against one process's
+autograd.
+
+One spawn of 4 ranks runs every case and writes what each rank holds; one
+JAX subprocess per architecture and cell kind (this file run as a script,
+with 4 host devices forced, XLA at optimisation level 0) writes the
+reference's results; they all run at once, and the tests compare.  Meshes
+of 2 ranks are built twice over the 4 (a leading ``rep`` dimension, sliced
+off), so every rank works in every case.
+
+Cases, fp32 smoke configs:
+
+* ``mixtral-smoke`` (TP-MoE: 4 experts, their d_ff split over ``model``;
+  window 8) and ``phi-moe-smoke`` (EP: 4 experts split over ``model``) on
+  (1, 2), (1, 4) and (2, 2) ``("data", "model")``;
+* ``hymba-smoke`` (5 heads padded to 8 over 1 KV head, so every ``KV·D``
+  shard cuts it; ``d_inner`` 128; 4 meta tokens; window 8 but on the
+  global layers 0 and 3) on (1, 2) and (1, 4).
+
+Each case runs the prefill cell over a 12-token prompt (behind hymba's meta
+tokens) into a cache of the prompt, the meta tokens and the 4 steps, then 4
+greedy steps of the decode cell (its attention cache split by sequence, the
+Mamba states by channel), then 3 AdamW steps of the train cell on a 4 x 16
+batch.  Held within 2e-5 (relative to the norm of the reference's): the
+logits and every cache shard at the rank's mesh coordinate (``ssm`` and
+``conv`` among them), the greedy tokens equal; each step's loss and
+gradient norm; each param shard after the steps and its ``m`` /
+``sqrt(v)`` shards after the first step (the first gradient), each
+relative to the norm of the reference's whole leaf, as
+``test_torch_tp_train.py``; the ``m`` / ``sqrt(v)`` shards after the three
+steps relative to the norm of the reference's whole moment tree; the
+replicated leaves bitwise equal across ``model`` ranks.  The capacity
+factor of both MoE smoke configs (4.0) drops nothing, so phi's per-slice
+dispatch is the reference's too.
+
+Why the moments after three steps are held over the whole tree: the
+second and third gradients are taken at params that differ from the
+reference's by an ulp here and there (fp32 sums in another order), and the
+gradients of hymba's meta tokens and of its norm gains are cancelling sums
+that turn such differences into ~1e-5 of their own norm: per leaf, the
+reference's jitted cell on (1, 4) is itself that far from its own
+single-device step, and this port's ranks a little farther (2.25e-5 of the
+meta tokens' ``m``, just over the limit).  The first gradients, which the
+per-leaf check holds, agree to fp32 rounding.
+
+Gradients over 2 ranks, fp64, each against autograd on the whole tensors
+in one process, the loss whole on every rank (as in the train cell), within
+1e-6: the shard-local MoE, TP and EP (EP also on tokens 2 ranks cannot
+split), at capacity 8.0, its loss holding the aux losses; hymba's Mamba
+mixer split over ``ssm_inner``.
+"""
+
+import functools
+import math
+import os
+import subprocess
+import sys
+import time
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+WORLD = 4
+DEADLINE_S = 150
+
+MESHES = {
+    "1x2": ((1, 2), ("data", "model")),
+    "1x4": ((1, 4), ("data", "model")),
+    "2x2": ((2, 2), ("data", "model")),
+}
+ARCH_MESHES = {             # the smoke configs of these
+    "mixtral-8x7b": ("1x2", "1x4", "2x2"),
+    "phi3.5-moe-42b-a6.6b": ("1x2", "1x4", "2x2"),
+    "hymba-1.5b": ("1x2", "1x4"),
+}
+CASES = [(a, m) for a, ms in ARCH_MESHES.items() for m in ms]
+B, PROMPT, STEPS = 2, 12, 4                  # serve: prompt, greedy decode steps
+TB, TS, TSTEPS, LR = 4, 16, 3, 3e-3         # train: batch, length, AdamW steps
+TOL = 2e-5
+GRAD_TOL = 1e-6
+GRAD_CASES = ("moe_tp", "moe_ep", "moe_ep_unsplit", "mamba")
+MOE_D, MOE_FF, MOE_E, MOE_K, MOE_CF = 16, 32, 4, 2, 8.0
+MOE_LB, MOE_Z = 0.1, 0.01                    # the aux losses' weights in the loss
+
+
+# ------------------------------------------------------- shared inputs
+
+
+def draw_params(leaves, cfg_heads, seed=0):
+    """Numpy weights for the (shape, logical axes) leaves in JAX order: norms
+    1 + 0.1 N, everything else 0.05 N; the rows of padded query heads in
+    ``wo`` zero, as the JAX package's init leaves them."""
+    num_heads, head_dim = cfg_heads
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape, axes in leaves:
+        if all(a in (None, "embed") for a in axes):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            a = 0.05 * rng.standard_normal(shape)
+        if axes[-2:] == ("heads", "embed"):
+            a[..., num_heads * head_dim:, :] = 0.0
+        out.append(a.astype(np.float32))
+    return out
+
+
+def seq_len(cfg) -> int:
+    """The serve cells' cache: the meta tokens, the prompt and the steps."""
+    return cfg.num_meta_tokens + PROMPT + STEPS
+
+
+def prompt(vocab):
+    return np.random.default_rng(1).integers(0, vocab, size=(B, PROMPT)).astype(np.int32)
+
+
+def train_batches(vocab):
+    rng = np.random.default_rng(2)
+    out = []
+    for _ in range(TSTEPS):
+        t = rng.integers(0, vocab, size=(TB, TS + 1)).astype(np.int32)
+        out.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return out
+
+
+def coord_key(coord) -> str:
+    return "".join(str(int(c)) for c in coord)
+
+
+# ------------------------------------------------------------- the ranks
+
+
+@functools.lru_cache(maxsize=None)
+def rank_mesh(shape, names):
+    """A DeviceMesh of ``shape``; when it has fewer ranks than the world,
+    one per block of ranks (a leading ``rep`` dimension, sliced off).  Made
+    once a shape: each makes its process groups."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    reps = WORLD // math.prod(shape)
+    full = DeviceMesh("cpu", torch.arange(WORLD).reshape((reps,) + tuple(shape)),
+                      mesh_dim_names=("rep",) + tuple(names))
+    return full[tuple(names)]
+
+
+def smoke(arch):
+    """(cfg, whole params as torch tensors)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.interop import from_numpy, tree_flatten, tree_unflatten
+    from repro_torch.models.transformer import param_specs
+
+    cfg = get_smoke_config(arch)
+    specs, treedef = tree_flatten(param_specs(cfg))
+    leaves = draw_params([(s.shape, s.logical_axes) for s in specs],
+                         (cfg.num_heads, cfg.head_dim))
+    return cfg, tree_unflatten(treedef, [from_numpy(a) for a in leaves])
+
+
+def rank_serve(out, arch, mname):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import gather_shard, use_mesh
+    from repro_torch.interop import from_numpy, to_numpy, tree_flatten, tree_map
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models.common import is_tuple
+
+    cfg, params = smoke(arch)
+    mesh = rank_mesh(*MESHES[mname])
+    key = f"{arch}/{mname}"
+    out[f"{key}/coord"] = np.asarray(mesh.get_coordinate())
+    seq = seq_len(cfg)
+
+    with use_mesh(mesh, rules_for("prefill", cfg)):
+        cell = SP.build_cell(cfg, ShapeConfig("p", seq, B, "prefill"), mesh)
+    p_local = SP.local_tree(params, cell.in_specs[0], mesh)
+    batch = SP.local_tree({"tokens": from_numpy(prompt(cfg.vocab_size))}, cell.in_specs[1], mesh)
+    logits, cache = cell.fn(p_local, batch)
+    out[f"{key}/prefill/logits"] = to_numpy(logits)
+    for i, t in enumerate(tree_flatten(cache)[0]):
+        out[f"{key}/prefill/cache{i}"] = to_numpy(t)
+    full_cache = tree_map(lambda t, s: gather_shard(t, s, mesh), cache, cell.out_specs[1],
+                          is_leaf=is_tuple)
+
+    with use_mesh(mesh, rules_for("decode", cfg)):
+        dcell = SP.build_cell(cfg, ShapeConfig("d", seq, B, "decode"), mesh)
+    p_local = SP.local_tree(params, dcell.in_specs[0], mesh)
+    cache = SP.local_tree(full_cache, dcell.in_specs[1], mesh)
+    tokens = logits.argmax(dim=-1).to(torch.int32)
+    toks = [to_numpy(tokens)]
+    for step in range(STEPS):
+        cur = torch.full_like(tokens, cfg.num_meta_tokens + PROMPT + step)
+        logits, cache = dcell.fn(p_local, cache, tokens, cur)
+        out[f"{key}/decode{step}/logits"] = to_numpy(logits)
+        tokens = logits.argmax(dim=-1).to(torch.int32)
+        toks.append(to_numpy(tokens))
+    out[f"{key}/tokens"] = np.stack(toks, axis=1)
+    for i, t in enumerate(tree_flatten(cache)[0]):
+        out[f"{key}/decode/cache{i}"] = to_numpy(t)
+
+
+def rank_train(out, arch, mname):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.interop import from_numpy, to_numpy, tree_flatten
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models.common import is_tuple
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg, full = smoke(arch)
+    tcfg = TrainConfig(optimizer=AdamWConfig(learning_rate=LR, warmup_steps=1))
+    mesh = rank_mesh(*MESHES[mname])
+    with use_mesh(mesh, rules_for("train", cfg)):
+        cell = SP.build_cell(cfg, ShapeConfig("t", TS, TB, "train"), mesh, tcfg)
+    p_specs, o_specs, b_specs = cell.in_specs
+    params = SP.local_tree(full, p_specs, mesh)
+    state = SP.local_tree(init_state(full), o_specs, mesh)
+    key = f"{arch}/{mname}/train"
+    losses, norms = [], []
+    for step, batch in enumerate(train_batches(cfg.vocab_size)):
+        batch = SP.local_tree({k: from_numpy(v) for k, v in batch.items()}, b_specs, mesh)
+        params, state, metrics = cell.fn(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if step == 0:
+            for name, tree in (("m1_", state.m), ("v1_", state.v)):
+                for i, t in enumerate(tree_flatten(tree)[0]):
+                    out[f"{key}/{name}{i}"] = to_numpy(t)
+    out[f"{key}/loss"] = np.asarray(losses)
+    out[f"{key}/grad_norm"] = np.asarray(norms)
+    out[f"{key}/step"] = np.asarray(int(state.step))
+    out[f"{key}/split"] = np.asarray([any(e is not None for e in s)
+                                      for s in tree_flatten(p_specs, is_tuple)[0]])
+    for name, tree in (("p", params), ("m", state.m), ("v", state.v)):
+        for i, t in enumerate(tree_flatten(tree)[0]):
+            out[f"{key}/{name}{i}"] = to_numpy(t)
+
+
+def rel(a, b, scale=None) -> float:
+    """||a - b|| over the norm of ``scale`` (default ``b``)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = b if scale is None else np.asarray(scale, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(scale), 1e-30))
+
+
+def grad_case(name):
+    """(whole fp64 params, their logical axes, x, fn): ``fn(params, x)``
+    under the active mesh -> (loss, outputs held beside the gradients).  A
+    ``None`` mesh gives the whole function the ranks are held to."""
+    from repro_torch.distributed.tensor_parallel import shard_of
+    from repro_torch.interop import tree_flatten, tree_unflatten
+    from repro_torch.models import moe, ssm
+
+    rng = np.random.default_rng(21)
+    if name == "mamba":
+        d, d_inner, n, dt_rank = 16, 32, 4, 2
+        specs = ssm.mamba_param_specs(d, d_inner, n, 4, dt_rank)
+        x_shape = (2, 12, d)
+    else:
+        kind = name.split("_")[1]
+        specs = moe.moe_param_specs(MOE_D, MOE_FF, MOE_E, kind)
+        # 15 tokens: 2 EP ranks cannot split them, and each routes them all
+        x_shape = (3, 5, MOE_D) if name == "moe_ep_unsplit" else (4, 8, MOE_D)
+    leaves, treedef = tree_flatten(specs)
+    params = tree_unflatten(treedef, [torch.from_numpy(0.3 * rng.standard_normal(s.shape))
+                                      for s in leaves])
+    axes = tree_unflatten(treedef, [s.logical_axes for s in leaves])
+    x = torch.from_numpy(rng.standard_normal(x_shape))
+    cot = torch.from_numpy(rng.standard_normal(x_shape))
+
+    if name == "mamba":
+        def fn(p, x_, whole):
+            ss = None if whole else shard_of("ssm_inner", d_inner)
+            y, (s_ssm, s_conv) = ssm.mamba_forward(p, x_, None, None, dt_rank, 8, ss)
+            return (y * cot).sum(), [y, s_ssm, s_conv]
+        return params, axes, x, fn
+
+    def fn(p, x_, whole):
+        if not whole:
+            y, aux = moe.moe_forward(p, x_, MOE_K, MOE_CF, shard_local=True,
+                                     moe_sharding=kind)
+        else:
+            y, aux = moe._moe_forward_dense(p, x_, MOE_K, MOE_CF)
+            if name == "moe_ep":
+                # EP routes a distinct half of the tokens on each of its 2
+                # ranks: the aux losses are the mean of the halves'
+                x2 = x_.reshape(-1, MOE_D)
+                half = x2.shape[0] // 2
+                parts = [moe._Dispatch(p["router"], x2[i * half:(i + 1) * half], MOE_K,
+                                       MOE_CF).aux() for i in range(2)]
+                aux = {k: (parts[0][k] + parts[1][k]) / 2 for k in aux}
+        loss = (y * cot).sum() + MOE_LB * aux["moe_lb_loss"] + MOE_Z * aux["moe_z_loss"]
+        return loss, [y, aux["moe_lb_loss"], aux["moe_z_loss"], aux["moe_drop_frac"]]
+    return params, axes, x, fn
+
+
+def rank_grads(out):
+    """Each gradient case on a (1, 2) mesh: this rank's shards of the
+    params, the whole input, the loss whole on every rank; its gradients
+    against autograd on the whole tensors in this process.  Outputs split
+    over ``ssm_inner`` (the Mamba states) are held at the rank's slice."""
+    from repro_torch.distributed.sharding import logical_pspec, shard_slices, use_mesh
+    from repro_torch.distributed.tensor_parallel import shard_of
+    from repro_torch.interop import tree_flatten, tree_map
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models.common import is_tuple
+
+    mesh = rank_mesh((1, 2), ("data", "model"))
+    for name in GRAD_CASES:
+        params, axes, x, fn = grad_case(name)
+        whole = tree_map(lambda t: t.clone().requires_grad_(True), params)
+        xw = x.clone().requires_grad_(True)
+        loss, want = fn(whole, xw, True)
+        loss.backward()
+        with use_mesh(mesh, rules_for("train")):
+            specs = tree_map(lambda a, t: logical_pspec(a, t.shape, mesh), axes, params,
+                             is_leaf=is_tuple)
+            local = tree_map(lambda t, s: t[shard_slices(s, t.shape, mesh)].clone()
+                             .requires_grad_(True), params, specs, is_leaf=is_tuple)
+            xl = x.clone().requires_grad_(True)
+            got_loss, got = fn(local, xl, False)
+            got_loss.backward()
+            ch = shard_of("ssm_inner", 32).slice if name == "mamba" else None
+        errs = {"loss": rel(got_loss.detach(), loss.detach()), "x": rel(xl.grad, xw.grad)}
+        for i, (g, w) in enumerate(zip(got, want)):
+            g, w = g.detach(), w.detach()
+            if name == "mamba" and i == 1:          # ssm [b, d_inner, N]
+                w = w[:, ch]
+            elif name == "mamba" and i == 2:        # conv [b, K-1, d_inner]
+                w = w[..., ch]
+            errs[f"out{i}"] = rel(g, w) if w.abs().sum() > 0 else float((g - w).abs().max())
+        split = 0
+        for i, (g, w, s) in enumerate(zip(tree_flatten(local)[0], tree_flatten(whole)[0],
+                                          tree_flatten(specs, is_tuple)[0])):
+            errs[f"p{i}"] = rel(g.grad, w.grad[shard_slices(s, w.shape, mesh)])
+            split += any(e is not None for e in s)
+        out[f"grad/{name}/errs"] = np.asarray(list(errs.values()))
+        out[f"grad/{name}/names"] = np.asarray(list(errs))
+        out[f"grad/{name}/split_leaves"] = np.asarray(split)
+
+
+def rank_main(rank, world, pg_path, out_dir):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{pg_path}", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=DEADLINE_S))
+    try:
+        out = {}
+        rank_grads(out)
+        for arch, mname in CASES:
+            rank_serve(out, arch, mname)
+            rank_train(out, arch, mname)
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------------- the reference
+
+
+def reference_main(path, arch, kind):
+    """The JAX package's jitted cells of ``arch`` on each of its meshes (run
+    as a script, 4 host devices): ``kind`` "serve" runs the prefill cell and
+    the decode cell's greedy steps, "train" the train cell's steps."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec
+
+    import repro.launch.specs as RSP
+    import repro.train.optimizer as ropt
+    import repro.train.train_step as rts
+    from repro.configs.base import ShapeConfig
+    from repro.configs.registry import get_smoke_config
+    from repro.distributed.sharding import use_mesh
+    from repro.launch.mesh import rules_for
+    from repro.models.common import ParamSpec
+    from repro.models.transformer import param_specs
+
+    out = {}
+    devs = np.array(jax.devices()[:WORLD])
+
+    def shards(prefix, tree, mesh):
+        pos = {dev.id: idx for idx, dev in np.ndenumerate(mesh.devices)}
+        for i, leaf in enumerate(jax.tree_util.tree_leaves(tree)):
+            out[f"{prefix}{i}"] = np.asarray(leaf)
+            for shard in leaf.addressable_shards:
+                out[f"{prefix}{i}@{coord_key(pos[shard.device.id])}"] = np.asarray(shard.data)
+
+    cfg = get_smoke_config(arch)
+    specs, treedef = jax.tree_util.tree_flatten(
+        param_specs(cfg), is_leaf=lambda v: isinstance(v, ParamSpec))
+    leaves = draw_params([(s.shape, s.logical_axes) for s in specs],
+                         (cfg.num_heads, cfg.head_dim))
+    seq = seq_len(cfg)
+    for mname in ARCH_MESHES[arch]:
+        shape, names = MESHES[mname]
+        key = f"{arch}/{mname}"
+        mesh = Mesh(devs[:math.prod(shape)].reshape(shape), names)
+        params = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(a) for a in leaves])
+        if kind == "train":
+            tcfg = rts.TrainConfig(optimizer=ropt.AdamWConfig(learning_rate=LR, warmup_steps=1))
+            with use_mesh(mesh, rules_for("train", cfg)):
+                step, _ = RSP.build_cell(cfg, ShapeConfig("t", TS, TB, "train"), mesh, tcfg)
+                # the first step's arguments on the shardings its outputs
+                # take, so every step runs the one compiled program
+                sh = lambda tree: jax.tree.map(  # noqa: E731
+                    lambda p: NamedSharding(mesh, p), tree,
+                    is_leaf=lambda v: isinstance(v, PartitionSpec))
+                params = jax.device_put(params, sh(RSP.param_pspecs(cfg, mesh)))
+                state = jax.device_put(ropt.init_state(params), sh(RSP.opt_pspecs(cfg, mesh)))
+                losses, norms = [], []
+                for i, batch in enumerate(train_batches(cfg.vocab_size)):
+                    params, state, metrics = step(params, state,
+                                                  {k: jnp.asarray(v) for k, v in batch.items()})
+                    losses.append(float(metrics["loss"]))
+                    norms.append(float(metrics["grad_norm"]))
+                    if i == 0:
+                        shards(f"{key}/train/m1_", state.m, mesh)
+                        shards(f"{key}/train/v1_", state.v, mesh)
+            out[f"{key}/train/loss"] = np.asarray(losses)
+            out[f"{key}/train/grad_norm"] = np.asarray(norms)
+            for name, tree in (("p", params), ("m", state.m), ("v", state.v)):
+                shards(f"{key}/train/{name}", tree, mesh)
+            continue
+        with use_mesh(mesh, rules_for("prefill", cfg)):
+            fn, _ = RSP.build_cell(cfg, ShapeConfig("p", seq, B, "prefill"), mesh)
+            logits, cache = fn(params, {"tokens": jnp.asarray(prompt(cfg.vocab_size))})
+        out[f"{key}/prefill/logits"] = np.asarray(logits)
+        shards(f"{key}/prefill/cache", cache, mesh)
+        cache = jax.tree_util.tree_map(np.asarray, cache)
+        with use_mesh(mesh, rules_for("decode", cfg)):
+            dfn, _ = RSP.build_cell(cfg, ShapeConfig("d", seq, B, "decode"), mesh)
+            toks = [np.asarray(jnp.argmax(logits, axis=-1).astype(jnp.int32))]
+            for step in range(STEPS):
+                cur = np.full((B,), cfg.num_meta_tokens + PROMPT + step, np.int32)
+                logits, cache = dfn(params, cache, toks[-1], cur)
+                out[f"{key}/decode{step}/logits"] = np.asarray(logits)
+                toks.append(np.asarray(jnp.argmax(logits, axis=-1).astype(jnp.int32)))
+                if step < STEPS - 1:
+                    cache = jax.tree_util.tree_map(np.asarray, cache)
+        out[f"{key}/tokens"] = np.stack(toks, axis=1)
+        shards(f"{key}/decode/cache", cache, mesh)
+    np.savez(path, **out)
+
+
+# -------------------------------------------------------------- the run
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Start the reference subprocesses (one per architecture and cell kind;
+    XLA's CPU backend at optimisation level 0) and the 4 ranks together;
+    wait for all (within ``DEADLINE_S``); their results as dicts."""
+    import torch.multiprocessing as mp
+
+    tmp = tmp_path_factory.mktemp("tp_zoo")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(SRC), os.environ.get("PYTHONPATH", "")]),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                          + " --xla_force_host_platform_device_count=4"
+                          + " --xla_backend_optimization_level=0").strip())
+    jobs = [(arch, kind) for arch in ARCH_MESHES for kind in ("serve", "train")]
+    refs = [subprocess.Popen([sys.executable, __file__, "reference", str(tmp / f"ref{i}.npz"),
+                              arch, kind], env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for i, (arch, kind) in enumerate(jobs)]
+    try:
+        t0 = time.monotonic()
+        ctx = mp.start_processes(rank_main, args=(WORLD, str(tmp / "pg"), str(tmp)),
+                                 nprocs=WORLD, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=max(1.0, DEADLINE_S - (time.monotonic() - t0))):
+                if time.monotonic() - t0 > DEADLINE_S:
+                    pytest.fail(f"the ranks did not finish in {DEADLINE_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        for ref in refs:
+            log, _ = ref.communicate(timeout=max(1.0, DEADLINE_S - (time.monotonic() - t0)))
+            assert ref.returncode == 0, log
+    finally:
+        for ref in refs:
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+    ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
+    ref = {}
+    for i in range(len(jobs)):
+        ref.update(np.load(tmp / f"ref{i}.npz"))
+    return ref, ranks
+
+
+def batch_rows(mname, coord, batch):
+    """This coordinate's rows of the batch (split over data)."""
+    shape, names = MESHES[mname]
+    n = dict(zip(names, shape))["data"]
+    i = dict(zip(names, coord))["data"]
+    return slice(i * batch // n, (i + 1) * batch // n)
+
+
+def n_cache(ranks, key):
+    return sum(1 for k in ranks[0] if k.startswith(key) and k[len(key):].isdigit())
+
+
+@pytest.mark.parametrize("arch,mname", CASES)
+def test_prefill_cell_matches_reference(runs, arch, mname):
+    ref, ranks = runs
+    key = f"{arch}/{mname}"
+    n = n_cache(ranks, f"{key}/prefill/cache")
+    assert n == (15 if arch == "hymba-1.5b" else 3)   # hymba: 3 segments of 5
+    for r in ranks:
+        coord = r[f"{key}/coord"]
+        want = ref[f"{key}/prefill/logits"][batch_rows(mname, coord, B)]
+        assert rel(r[f"{key}/prefill/logits"], want) < TOL
+        for i in range(n):
+            got = r[f"{key}/prefill/cache{i}"]
+            want = ref[f"{key}/prefill/cache{i}@{coord_key(coord)}"]
+            assert got.shape == want.shape, (i, got.shape, want.shape)
+            assert rel(got, want) < TOL, i
+
+
+@pytest.mark.parametrize("arch,mname", CASES)
+def test_decode_cell_matches_reference(runs, arch, mname):
+    ref, ranks = runs
+    key = f"{arch}/{mname}"
+    n = n_cache(ranks, f"{key}/decode/cache")
+    n_model = dict(zip(MESHES[mname][1], MESHES[mname][0]))["model"]
+    for r in ranks:
+        coord = r[f"{key}/coord"]
+        rows = batch_rows(mname, coord, B)
+        np.testing.assert_array_equal(r[f"{key}/tokens"], ref[f"{key}/tokens"][rows])
+        for step in range(STEPS):
+            assert rel(r[f"{key}/decode{step}/logits"],
+                       ref[f"{key}/decode{step}/logits"][rows]) < TOL, step
+        for i in range(n):
+            got = r[f"{key}/decode/cache{i}"]
+            want = ref[f"{key}/decode/cache{i}@{coord_key(coord)}"]
+            whole = ref[f"{key}/decode/cache{i}"]
+            assert got.shape == want.shape, (i, got.shape, want.shape)
+            # every leaf split over model: k / v / pos by sequence, ssm /
+            # conv by channel
+            assert math.prod(got.shape) * n_model * (B // got.shape[1]) == whole.size, i
+            if got.dtype.kind == "i":                       # pos: exact
+                np.testing.assert_array_equal(got, want)
+            else:
+                assert rel(got, want) < TOL, i
+
+
+@pytest.mark.parametrize("arch,mname", CASES)
+def test_train_cell_matches_reference(runs, arch, mname):
+    ref, ranks = runs
+    key = f"{arch}/{mname}/train"
+    np.testing.assert_allclose(ranks[0][f"{key}/loss"], ref[f"{key}/loss"], rtol=TOL)
+    np.testing.assert_allclose(ranks[0][f"{key}/grad_norm"], ref[f"{key}/grad_norm"], rtol=TOL)
+    n = len(ranks[0][f"{key}/split"])
+
+    def held(r, name, i, at):
+        got, want = r[f"{key}/{name}{i}"], ref[f"{key}/{name}{i}@{at}"]
+        whole = ref[f"{key}/{name}{i}"]
+        assert got.shape == want.shape, (name, i, got.shape, want.shape)
+        if name.startswith("v"):        # in the gradients' units, as m
+            return np.sqrt(got), np.sqrt(want), np.sqrt(whole)
+        return got, want, whole
+
+    for r in ranks:
+        assert int(r[f"{key}/step"]) == TSTEPS
+        np.testing.assert_array_equal(r[f"{key}/loss"], ranks[0][f"{key}/loss"])
+        at = coord_key(r[f"{arch}/{mname}/coord"])
+        for name in ("p", "m1_", "v1_"):        # each leaf: the params, the first gradient
+            for i in range(n):
+                err = rel(*held(r, name, i, at))
+                assert err < TOL, (at, name, i, err)
+        for name in ("m", "v"):                 # the moments after the steps, every leaf
+            diff = scale = 0.0
+            for i in range(n):
+                got, want, whole = (a.astype(np.float64) for a in held(r, name, i, at))
+                diff += float(np.sum((got - want) ** 2))
+                scale += float(np.sum(whole ** 2))
+            err = math.sqrt(diff / scale)
+            assert err < TOL, (at, name, err)
+
+
+@pytest.mark.parametrize("arch,mname", CASES)
+def test_train_replicated_leaves_bitwise_across_model_ranks(runs, arch, mname):
+    """Ranks that differ only in their ``model`` coordinate hold the same
+    bits of every replicated leaf and of its moments; the experts' (or the
+    Mamba mixer's) leaves are among the split ones."""
+    _, ranks = runs
+    key = f"{arch}/{mname}/train"
+    split = ranks[0][f"{key}/split"]
+    assert split.any() and not split.all()
+    groups = {}
+    for r in ranks:
+        groups.setdefault(coord_key(r[f"{arch}/{mname}/coord"][:-1]), []).append(r)
+    peers = 0
+    for group in groups.values():
+        for r in group[1:]:
+            for name in ("p", "m", "v"):
+                for i in np.flatnonzero(~split):
+                    np.testing.assert_array_equal(r[f"{key}/{name}{i}"],
+                                                  group[0][f"{key}/{name}{i}"])
+            peers += 1
+    assert peers > 0
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_gradients_match_whole_autograd(runs, name):
+    """The loss whole on every rank: each rank's param-shard gradients are
+    the whole gradient's slice, and the gradients of ``x`` (and of the
+    router, replicated) the whole gradient (the shard-local MoE's
+    collectives follow ``tensor_parallel.py``'s rule over ``model``)."""
+    _, ranks = runs
+    for r in ranks:
+        assert int(r[f"grad/{name}/split_leaves"]) > 0
+        errs = dict(zip(r[f"grad/{name}/names"], r[f"grad/{name}/errs"]))
+        assert all(e < GRAD_TOL for e in errs.values()), errs
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["reference"]:
+    reference_main(sys.argv[2], sys.argv[3], sys.argv[4])
