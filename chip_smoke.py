@@ -283,10 +283,11 @@ Phases, each printing one JSON line:
 14. tensor_parallel_zoo  the MoE and hymba cells tensor-parallel over
             ``model`` (``TPZ_*``): first ``flash_attention`` on rank 1's
             heads at (b)'s prefill shapes, as 12 (a).  Then, weights from
-            seed 0 made on the card: mixtral-8x7b (8 of 32 layers, TP-MoE,
-            1 x 4608 past its 4096 window), phi3.5-moe (4 of 32, EP at
-            capacity 8.0, 4 x 1024), hymba-1.5b (whole, 4 x 1024 behind 128
-            meta tokens) through the prefill cell and 16 decode-cell steps,
+            seed 0 made on the card: mixtral-8x7b (4 of 32 layers, TP-MoE,
+            1 x 4608 past its 4096 window), phi3.5-moe (2 of 32, EP at
+            capacity 8.0, 4 x 1024), hymba-1.5b (8 of 32 layers, global
+            layer 0 and 7 windowed ones, 4 x 1024 behind 128 meta tokens)
+            through the prefill cell and 16 decode-cell steps,
             and their train cells (1 / 1 / 4 layers, 1 x 2048, 2 AdamW
             steps; phi3.5-moe without its per-slice load-balance loss).
             (a) In a process of its own under NCCL at world size 1: the
@@ -303,6 +304,28 @@ Phases, each printing one JSON line:
             hopper at the rank's head offset.  phi3.5-moe's prefill at its
             published capacity 1.25 is reported (dropped share a rank,
             logits distance), not held.
+15. tensor_parallel_rest  the xLSTM, qwen2-vl and seamless cells
+            tensor-parallel over ``model``, and a decode cache split by KV
+            heads (``TPR_*``): first ``flash_attention`` on rank 1's heads
+            at (b)'s prefill shapes, non-causal and Sq != Sk among them.
+            Then, as 14: xlstm-1.3b (8 of 48 blocks, 1 x 1024: the mLSTM's
+            channels and the sLSTM's FFN split), qwen2-vl-7b (8 of 28
+            layers, a 1536-token prompt on the kernel route; its image-block
+            prompt, prefill only, on the plain one), seamless-m4t-medium
+            (whole, 4 x 32-token prompts over 1200 frames: the encoder's
+            and cross-attention's heads split, the memory KV by KV heads)
+            and qwen2-1.5b (whole, 4 x 1024, its cache one position longer
+            so 2 does not divide it: the decode cache split by its 2 KV
+            heads) through the prefill cell and 16 decode-cell steps, and
+            the train cells of the first three (8 blocks 1 x 512, 1 layer
+            1 x 2048, whole 1 x 1024).  (a) NCCL at world size 1, bitwise;
+            (b) 2 gloo ranks, held as 14's (no routes); (a) and (b) run in
+            the processes of 14's, after its parts (one start-up each; a
+            phase's ``seconds`` counts its parts, not the start-ups); every
+            prefill's
+            flash_attention launches hopper at the rank's head offset,
+            the prefills counted by route, the decode cache's split read
+            from the cell's specs.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
@@ -313,8 +336,9 @@ phase 9's and phase 10's launches by model, and for paged_attention and
 flash_attention its phase-2 cases at phase 9's and phase 10's shapes with the
 launches of the model each stands for; for flash_attention also phase 10's
 launches by variant and by mask and the prefills that took the plain
-route, and phase 12 (a)'s and phase 14's cases with (c)'s and (b)'s
-launches; phase 13's launches, zero; phase 14's by model), the card's
+route, and phase 12 (a)'s, phase 14's and phase 15's cases with (c)'s and
+(b)'s launches; phase 13's launches, zero; phases 14's and 15's by model),
+the card's
 name and power limit from nvidia-smi, and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises before that line (non-zero exit).  Without a
 CUDA card, or without the rest of the repository beside it, it exits
@@ -527,8 +551,10 @@ TPT_M_REL_TOL = 5e-2
 # process of its own: the cells bitwise T.prefill / T.decode_step and
 # train_step; (b) over TPZ_RANKS gloo ranks sharing the card, held to (a)
 # with phase 12's and 13's limits, or twice (a)'s own bf16 error where
-# larger (mixtral's 8 MoE layers, hymba's 32 of three sums each: a bf16
-# partial sum rounds otherwise than one product).  phi3.5-moe (EP) is held at a capacity
+# larger (mixtral's MoE layers, hymba's of three sums each: a bf16 partial
+# sum rounds otherwise than one product).  The serve depths (mixtral 4 of
+# 32 layers, phi3.5-moe 2, hymba 8) are cut to keep the script's time with
+# phase 15 in it.  phi3.5-moe (EP) is held at a capacity
 # factor that drops nothing (E / K = 8.0): capacity is per dispatch shard,
 # so at its published factor 2 ranks drop other assignments than one does,
 # by design; the published factor's prefill runs too, reported unheld.  So
@@ -536,9 +562,9 @@ TPT_M_REL_TOL = 5e-2
 # tokens): its train cells are held without it (the z-loss, a plain mean,
 # stays).
 TPZ_SERVE = {
-    "mixtral-8x7b": (8, 1, 4608),
-    "phi3.5-moe-42b-a6.6b": (4, 4, 1024),
-    "hymba-1.5b": (None, 4, 1024),
+    "mixtral-8x7b": (4, 1, 4608),
+    "phi3.5-moe-42b-a6.6b": (2, 4, 1024),
+    "hymba-1.5b": (8, 4, 1024),
 }
 TPZ_TRAIN = {
     "mixtral-8x7b": (1, 1, 2048),
@@ -568,6 +594,51 @@ TPZ_FLASH_ARCH = {"mixtral_4608_w4096_tp2": "mixtral-8x7b",
 TPZ_TRAIN_STEPS = 2
 TPZ_RANKS = 2
 TPZ_LR = 3e-4
+# phase 15: the xLSTM, qwen2-vl and seamless cells tensor-parallel over
+# "model", and a decode cache split by KV heads, full width, random weights
+# from seed 0 made on the card, bf16 compute, held as phase 14's.  Serve
+# (bf16 params): (layers kept, batch, prompt tokens), the prefill cell,
+# then TPZ_DECODE_STEPS decode-cell steps: xlstm-1.3b at 8 of its 48 blocks
+# (one unit of 7 mLSTM + 1 sLSTM: the mLSTM's channels and the sLSTM's FFN
+# split); qwen2-vl-7b at 8 of 28 layers, its text prompt (positions the
+# index: the kernel route) then, prefill only, its image-block prompt (a
+# VLM_GRID x VLM_GRID block: the plain route); seamless-m4t-medium whole,
+# its decoder prompts over TPR_FRAMES frames (the encoder's and the cross-
+# attention's heads split, the memory KV by KV heads); qwen2-1.5b whole
+# with its cache one position longer than the prompt and the steps, so 2
+# does not divide it and the decode cache splits its 2 KV heads (the
+# decode cell's KV-head path: rank 0's KV head serves heads 0-5 and the
+# padded 12-15, rank 1's heads 6-11).  Train (fp32 params, remat "full"):
+# (layers, batch, seq), seamless over seq frames, qwen2-vl on embeddings
+# with an image block in its positions.
+TPR_SERVE = {
+    "xlstm-1.3b": (8, 1, 1024),
+    "qwen2-vl-7b": (8, 1, 1536),
+    "seamless-m4t-medium": (None, 4, 32),
+    "qwen2-1.5b": (None, 4, 1024),
+}
+TPR_TRAIN = {
+    "xlstm-1.3b": (8, 1, 512),
+    "qwen2-vl-7b": (1, 1, 2048),
+    "seamless-m4t-medium": (None, 1, 1024),
+}
+TPR_FRAMES = 1200
+TPR_HEAD_CACHE = "qwen2-1.5b"
+TPR_VLM = "qwen2-vl-7b"
+# flash_attention on (b)'s rank 1 at phase 15's prefill shapes, as
+# TPZ_FLASH_CASES, with (causal, Sk) where the mask is not causal over Sq =
+# Sk: seamless's encoder (8 of its 16 heads from 8, non-causal over its
+# 1200 frames) and cross-attention (its 32-token prompts over the 1200
+# frames), qwen2-vl-7b's 1536-token prompt (16 of its 32 padded heads from
+# 16: heads 16-27 real, reading 2 of its 4 KV heads)
+TPR_FLASH_CASES = {
+    "seamless_enc_1200_tp2": (4, 16, 16, 16, 1200, 64, 2, 8, None, False, 1200),
+    "seamless_cross_32x1200_tp2": (4, 16, 16, 16, 32, 64, 2, 8, None, False, 1200),
+    "qwen2vl_1536_tp2": (1, 32, 28, 4, 1536, 128, 2, 16, None),
+}
+TPR_FLASH_ARCH = {"seamless_enc_1200_tp2": "seamless-m4t-medium",
+                  "seamless_cross_32x1200_tp2": "seamless-m4t-medium",
+                  "qwen2vl_1536_tp2": "qwen2-vl-7b"}
 # phase 10: the rest of the zoo at full width (bf16, random weights from
 # seed 0 made on the card).  xlstm-1.3b through ServeEngine at XLSTM_LAYERS
 # of its 48 blocks (3 of its 6 repeating units of 7 mLSTM + 1 sLSTM; cut
@@ -3048,7 +3119,9 @@ def tp_flash_cases(torch, flush, cases=TP_FLASH_CASES):
     (``head_offset``) at full width, bf16: each rank's shard of ``cases``
     on both variants bitwise those heads of the launch over every head and
     held to its plain version (TOL, ROW_REL_TOL); the ``timed`` shard timed
-    as phase 2 times, beside the full launch."""
+    as phase 2 times, beside the full launch.  A case is (B, H, real heads,
+    KVH, Sq, D, ranks, timed offset, window), causal over Sq = Sk, or with
+    (causal, Sk) after it."""
     import numpy as np
 
     from repro_torch.kernels.flash_attention.kernel import (VARIANTS, choose_variant,
@@ -3057,12 +3130,13 @@ def tp_flash_cases(torch, flush, cases=TP_FLASH_CASES):
 
     rng = np.random.default_rng(12)
     rows = []
-    for case, (B, H, NH, KVH, S, D, ranks, timed, window) in cases.items():
+    for case, (B, H, NH, KVH, S, D, ranks, timed, window, *mask) in cases.items():
+        causal, SK = mask if mask else (True, S)
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
                    .to("cuda", torch.bfloat16).transpose(1, 2)
-                   for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+                   for shape in ((B, S, H, D), (B, SK, KVH, D), (B, SK, KVH, D)))
         per, rep = H // ranks, NH // KVH
-        kw = dict(causal=True, window=window, num_heads=NH)
+        kw = dict(causal=causal, window=window, num_heads=NH)
         full = {var: flash_attention(q, k, v, variant=var, **kw) for var in VARIANTS}
         checked = {}
         for r in range(ranks):
@@ -3098,19 +3172,19 @@ def tp_flash_cases(torch, flush, cases=TP_FLASH_CASES):
         else:                                             # a cut group: one KV head a head
             idx = torch.arange(lo, hi, device="cuda") // rep
             kl, vl = k[:, idx], v[:, idx]
-        library = sdpa_flash_yardstick(torch, qs, kl, vl, real, True, window)
+        library = sdpa_flash_yardstick(torch, qs, kl, vl, real, causal, window)
         times = measure(torch, flush,
                         lambda: flash_attention(qs, k, v, head_offset=timed, **kw),
                         lambda: flash_attention_ref(qs, k, v, head_offset=timed, **kw), library,
                         {"generic_ms": lambda: flash_attention(qs, k, v, variant="generic",
                                                                head_offset=timed, **kw),
                          "full_launch_ms": lambda: flash_attention(q, k, v, **kw)})
-        pairs = visible_pairs(B, S, S, True, window)
-        nbytes = (B * real * S * D + 2 * B * (g1 - g0) * S * D + B * per * S * D) * 2
+        pairs = visible_pairs(B, S, SK, causal, window)
+        nbytes = (B * real * S * D + 2 * B * (g1 - g0) * SK * D + B * per * S * D) * 2
         bnd, by = bound_ms(nbytes, 4.0 * D * real * pairs, "bfloat16")
         err_max, row_err = checked[(timed, "hopper")]
         rows.append(dict(case=case, dtype="bfloat16", q=[B, per, S, D], num_heads=NH, kvh=KVH,
-                         window=window,
+                         window=window, causal=causal, kv_len=SK,
                          ranks=ranks, head_offsets=[r * per for r in range(ranks)],
                          timed_offset=timed, real_heads=real, variant=variant,
                          bitwise_full_launch=True,
@@ -3737,18 +3811,33 @@ class CollectiveCounter:
 def tpz_serve(torch, K, FK, mesh, arch, forced=None, cf=None, prefill_only=False,
               reference=False, dtype="bfloat16", steps=TPZ_DECODE_STEPS):
     """``arch``'s prefill cell at TPZ_SERVE's batch and prompt (numpy seed 0
-    tokens), then ``steps`` decode-cell steps, on ``mesh``, every
-    rank on its own shards (bf16 weights from seed 0, drawn rank by rank);
-    the decode fed ``forced`` tokens where given, else its own greedy ones.
-    Counts zeroed just before the timed prefill (the second) and read after
-    the decode; ``flash_attention``'s calls counted by head offset, the
-    MoE's dropped share by call.  With ``reference`` (world size 1) the
-    cells are held bitwise to ``T.prefill`` / ``T.decode_step`` on the same
-    weights.  ``dtype``: the compute's, and the weights' (the bf16 draws
-    cast: both runs hold the same values).  Returns (report,
-    logits [prefill, each step], fed tokens); the report's ``routes``, each
-    route call's expert ids."""
+    tokens), then ``steps`` decode-cell steps (:func:`tp_serve`); ``cf``:
+    the capacity factor, where given; ``dtype``: the compute's."""
     import numpy as np
+
+    cfg = tpz_config(arch, "serve", cf, dtype)
+    _, b, prompt = TPZ_SERVE[arch]
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, prompt), dtype=np.int64).astype(np.int32)
+    pos0 = cfg.num_meta_tokens + prompt
+    return tp_serve(torch, K, FK, mesh, cfg, {"tokens": tokens}, pos0, pos0 + TPZ_DECODE_STEPS,
+                    "tensor_parallel_zoo", forced, prefill_only, reference, steps)
+
+
+def tp_serve(torch, K, FK, mesh, cfg, np_batch, pos0, seq, tag, forced=None,
+             prefill_only=False, reference=False, steps=TPZ_DECODE_STEPS):
+    """``cfg``'s prefill cell on ``np_batch`` (numpy, whole: each rank takes
+    its rows) into a cache of ``seq`` positions, then ``steps`` decode-cell
+    steps from position ``pos0``, on ``mesh``, every rank on its own shards
+    (bf16 weights from seed 0, drawn rank by rank, held in the compute
+    dtype); the decode fed ``forced`` tokens where given, else its own
+    greedy ones.  Counts zeroed just before the timed prefill (the second,
+    bf16) and read after the decode; ``flash_attention``'s calls counted by
+    head offset, the MoE's dropped share by call, the prefills by route.
+    With ``reference`` (world size 1) the cells are held bitwise to
+    ``T.prefill`` / ``T.decode_step`` on the same weights; ``tag`` names
+    the phase in failures.  Returns (report, logits [prefill, each step],
+    fed tokens); the report's ``routes``, each route call's expert ids."""
     import torch.distributed as dist
 
     import repro_torch.models.blocks as blocks
@@ -3757,13 +3846,12 @@ def tpz_serve(torch, K, FK, mesh, arch, forced=None, cf=None, prefill_only=False
     from repro_torch import torch_dtype
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.interop import from_numpy
     from repro_torch.launch import specs as SP
     from repro_torch.launch.mesh import rules_for
 
-    cfg = tpz_config(arch, "serve", cf, dtype)
-    _, b, prompt = TPZ_SERVE[arch]
-    meta = cfg.num_meta_tokens
-    seq = meta + prompt + TPZ_DECODE_STEPS
+    dtype = cfg.compute_dtype
+    b = next(iter(np_batch.values())).shape[0]
     cells = {}
     for kind in ("prefill", "decode"):
         with use_mesh(mesh, rules_for(kind, cfg)):
@@ -3778,9 +3866,8 @@ def tpz_serve(torch, K, FK, mesh, arch, forced=None, cf=None, prefill_only=False
         torch.cuda.synchronize()
         dist.barrier()
     setup_s = time.perf_counter() - t0
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (b, prompt), dtype=np.int64).astype(np.int32)).to("cuda")
-    batch = SP.local_tree({"tokens": tokens}, cells["prefill"].in_specs[1], mesh)
+    whole_batch = {k: from_numpy(v, "cuda") for k, v in np_batch.items()}
+    batch = SP.local_tree(whole_batch, cells["prefill"].in_specs[1], mesh)
     offsets, drops, routes = {}, [], []
 
     def by_offset(fn):
@@ -3809,8 +3896,11 @@ def tpz_serve(torch, K, FK, mesh, arch, forced=None, cf=None, prefill_only=False
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     FK.reset_variant_counts()
-    report = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b, "prompt_tokens": prompt,
-              "meta_tokens": meta, "window": cfg.sliding_window,
+    T.reset_prefill_routes()
+    report = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b,
+              "input_shapes": {k: list(v.shape) for k, v in np_batch.items()},
+              "cache_positions": seq, "meta_tokens": cfg.num_meta_tokens,
+              "window": cfg.sliding_window,
               "capacity_factor": cfg.capacity_factor if cfg.num_experts else None,
               "weights_setup_s": setup_s}
     with Patched(blocks, "flash_attention", by_offset), \
@@ -3821,6 +3911,7 @@ def tpz_serve(torch, K, FK, mesh, arch, forced=None, cf=None, prefill_only=False
         torch.cuda.synchronize()
         report["prefill_cell_ms"] = (time.perf_counter() - t0) * 1e3
         report["prefill_collectives"] = coll.take()
+        report["prefill_routes"] = dict(T.prefill_routes)
         if cfg.num_experts:
             report["prefill_drop_frac"] = [float(d) for d in drops]
         out_logits, fed = [logits], []
@@ -3830,7 +3921,7 @@ def tpz_serve(torch, K, FK, mesh, arch, forced=None, cf=None, prefill_only=False
             nxt, step_ms = logits.argmax(-1).to(torch.int32), []
             for step in range(steps):
                 tok = nxt if forced is None else forced[step].to("cuda")
-                cur = torch.full_like(tok, meta + prompt + step)
+                cur = torch.full_like(tok, pos0 + step)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 logits, cache = cells["decode"].fn(params, cache, tok, cur)
@@ -3846,22 +3937,24 @@ def tpz_serve(torch, K, FK, mesh, arch, forced=None, cf=None, prefill_only=False
     report.update(launches=dict(K.launch_counts), flash_attention_variants=dict(FK.variant_counts),
                   flash_attention_calls_by_head_offset=offsets,
                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+    kv_spec = cells["decode"].in_specs[1][0].get("k")
+    if kv_spec is not None and not prefill_only:
+        report["decode_kv_spec"] = list(kv_spec)
     del cache
     if reference:
         cache = T.init_cache(cfg, b, seq, torch_dtype(cfg.compute_dtype), device="cuda")
-        hidden, cache = T.prefill(cfg, params, {"tokens": tokens}, cache)
+        hidden, cache = T.prefill(cfg, params, whole_batch, cache)
         check(torch.equal(T.lm_logits(cfg, params, hidden), out_logits[0]),
-              f"tensor_parallel_zoo (a) {arch}: prefill-cell logits not bitwise T.prefill's")
+              f"{tag} (a) {cfg.name}: prefill-cell logits not bitwise T.prefill's")
         for step, tok in enumerate(fed):
             check(forced is not None or step == 0 or
                   torch.equal(tok, out_logits[step].argmax(-1).to(torch.int32)),
-                  f"tensor_parallel_zoo (a) {arch}: greedy token {step}")
-            lg, cache = T.decode_step(cfg, params, cache, tok,
-                                      torch.full_like(tok, meta + prompt + step))
+                  f"{tag} (a) {cfg.name}: greedy token {step}")
+            lg, cache = T.decode_step(cfg, params, cache, tok, torch.full_like(tok, pos0 + step))
             check(torch.equal(lg, out_logits[step + 1]),
-                  f"tensor_parallel_zoo (a) {arch}: decode-cell logits {step} not bitwise "
+                  f"{tag} (a) {cfg.name}: decode-cell logits {step} not bitwise "
                   "T.decode_step's")
-        report["bitwise_prefill_decode_step"] = not prefill_only
+        report["bitwise_prefill_decode_step"] = True
         del cache, hidden
     del params
     torch.cuda.empty_cache()
@@ -3934,7 +4027,8 @@ def tpz_first_m(torch, cell, mesh, batch, params, state) -> list:
     return tree_flatten(state.m)[0]
 
 
-def tpz_train_single(torch, K, mesh, arch, work):
+def tpz_train_single(torch, K, mesh, arch, work, train_cell=tpz_train_cell,
+                     tag="tensor_parallel_zoo"):
     """(a)'s train part: the TP train cell at world size 1 for
     TPZ_TRAIN_STEPS steps, then ``train_step`` from the same weights, one
     training state on the card at a time, both under deterministic
@@ -3951,7 +4045,7 @@ def tpz_train_single(torch, K, mesh, arch, work):
     from repro_torch.train.optimizer import init_state
     from repro_torch.train.train_step import train_step
 
-    cfg, tcfg, cell, batches = tpz_train_cell(torch, mesh, arch)
+    cfg, tcfg, cell, batches = train_cell(torch, mesh, arch)
     ranks_mesh = MeshSpec(("data", "model"), (1, TPZ_RANKS))
     with use_mesh(ranks_mesh, rules_for("train", cfg)):
         m_specs = tree_flatten(SP.opt_pspecs(cfg, ranks_mesh).m, is_tuple)[0]
@@ -3994,17 +4088,17 @@ def tpz_train_single(torch, K, mesh, arch, work):
     torch.use_deterministic_algorithms(False)
     cell_run, ref = runs["cell"], runs["train_step"]
     differ = [i + 1 for i in range(TPZ_TRAIN_STEPS) if cell_run["prints"][i] != ref["prints"][i]]
-    check(not differ, f"tensor_parallel_zoo (a) {arch}: params / m / v after steps {differ} "
+    check(not differ, f"{tag} (a) {arch}: params / m / v after steps {differ} "
                       "not train_step's")
     check(cell_run["losses"] == ref["losses"] and cell_run["grad_norms"] == ref["grad_norms"],
-          f"tensor_parallel_zoo (a) {arch}: losses {cell_run['losses']} / {ref['losses']}")
+          f"{tag} (a) {arch}: losses {cell_run['losses']} / {ref['losses']}")
     launches = dict(K.launch_counts)
     check(launches["flash_attention"] == 0,
-          f"tensor_parallel_zoo (a) {arch} train: flash_attention launched {launches}")
+          f"{tag} (a) {arch} train: flash_attention launched {launches}")
     peak = torch.cuda.max_memory_allocated()
 
     # the same first step computing in fp32: the bf16 m's own error, per leaf
-    cfg32, _, cell32, _ = tpz_train_cell(torch, mesh, arch, "float32")
+    cfg32, _, cell32, _ = train_cell(torch, mesh, arch, "float32")
     params = device_params(torch, cfg32, torch.float32)
     m32 = tpz_first_m(torch, cell32, mesh, batches[0], params, init_state(params))
     del params
@@ -4013,7 +4107,7 @@ def tpz_train_single(torch, K, mesh, arch, work):
     bf16_err = [((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(m1, m32)]
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
-            "batch": TPZ_TRAIN[arch][1], "seq": TPZ_TRAIN[arch][2],
+            "batch": {k: list(v.shape) for k, v in batches[0].items()},
             "capacity_factor": cfg.capacity_factor if cfg.num_experts else None,
             "losses": cell_run["losses"], "grad_norms": cell_run["grad_norms"],
             "step_ms": {"cell": cell_run["step_ms"], "train_step": ref["step_ms"]},
@@ -4024,7 +4118,8 @@ def tpz_train_single(torch, K, mesh, arch, work):
                     "of every leaf's bits"}
 
 
-def tpz_train_rank(torch, K, mesh, arch, work, rank):
+def tpz_train_rank(torch, K, mesh, arch, work, rank, train_cell=tpz_train_cell,
+                   tag="tensor_parallel_zoo"):
     """(b)'s train part on one rank: the TP train cell from (a)'s weights
     (drawn rank by rank) and batches, its m after step 1 against (a)'s slice
     (per leaf, on the host); its replicated leaves saved for the ranks'
@@ -4060,11 +4155,11 @@ def tpz_train_rank(torch, K, mesh, arch, work, rank):
         out = []
         for j, (got, w) in enumerate(zip(m1, want)):
             got = m1_sample(got)
-            check(got.shape == w.shape, f"tensor_parallel_zoo (b) {arch}: m{j} shape")
+            check(got.shape == w.shape, f"{tag} (b) {arch}: m{j} shape")
             out.append(((got - w).norm() / w.norm().clamp_min(1e-30)).item())
         return out
 
-    cfg, tcfg, cell, batches = tpz_train_cell(torch, mesh, arch)
+    cfg, tcfg, cell, batches = train_cell(torch, mesh, arch)
     params, state = local_state(cfg, cell)
     losses, norms, step_ms, m1_err = [], [], [], []
     torch.cuda.synchronize()
@@ -4097,7 +4192,7 @@ def tpz_train_rank(torch, K, mesh, arch, work, rank):
     del params, state
     torch.cuda.empty_cache()
     # the first step computing in fp32, held to (a)'s
-    cfg32, _, cell32, _ = tpz_train_cell(torch, mesh, arch, "float32")
+    cfg32, _, cell32, _ = train_cell(torch, mesh, arch, "float32")
     params, state = local_state(cfg32, cell32)
     report["m_step1_fp32_rel_err"] = m1_errs(tpz_first_m(torch, cell32, mesh, batches[0],
                                                          params, state), "32")
@@ -4106,105 +4201,74 @@ def tpz_train_rank(torch, K, mesh, arch, work, rank):
     return report
 
 
-def tpz_single(_rank, store, work):
-    """(a) in a process of its own: every model's prefill and decode cells
-    (and phi3.5-moe's prefill cell at its published capacity factor), then
-    every train cell, under NCCL at world size 1 (a (1, 1) mesh); writes
-    its report, logits and greedy tokens."""
-    import os
-
+def tpz_single_part(torch, K, FK, mesh, work) -> dict:
+    """Phase 14's (a) part, in :func:`tp_models_single`'s process: every
+    model's prefill and decode cells (and phi3.5-moe's prefill cell at its
+    published capacity factor), then every train cell, on the (1, 1) mesh;
+    writes its logits and greedy tokens, returns its report."""
     import numpy as np
 
-    # cuBLAS's reproducible workspace, for the train parts' deterministic
-    # algorithms: set before the first handle
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    import torch
-    import torch.distributed as dist
+    report = {"serve": {}, "train": {}}
+    for arch in TPZ_SERVE:
+        rep, logits, fed = tpz_serve(torch, K, FK, mesh, arch, cf=TPZ_NODROP_CF.get(arch),
+                                     reference=True)
+        torch.save(rep.pop("routes"), work / f"routes_{arch}.pt")
+        report["serve"][arch] = rep
+        np.save(work / f"logits_{arch}.npy",
+                torch.stack([lg.float() for lg in logits]).cpu().numpy())
+        np.save(work / f"tokens_{arch}.npy", fed.cpu().numpy())
+        rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, forced=fed,
+                                   cf=TPZ_NODROP_CF.get(arch), dtype="float32",
+                                   steps=TPZ_FP32_STEPS)
+        torch.save(rep.pop("routes"), work / f"routes32_{arch}.pt")
+        report["serve"][arch]["float32"] = rep
+        np.save(work / f"logits32_{arch}.npy", torch.stack(logits).cpu().numpy())
+        if arch in TPZ_NODROP_CF:
+            rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, prefill_only=True)
+            del rep["routes"]
+            report["serve"][arch]["published_capacity"] = rep
+            np.save(work / f"logits_{arch}_published.npy", logits[0].float().cpu().numpy())
+    for arch in TPZ_TRAIN:
+        report["train"][arch] = tpz_train_single(torch, K, mesh, arch, work)
+    return report
 
-    K = tpt_process(torch)
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.launch.mesh import init_process_group, make_host_mesh
 
-    work = Path(work)
-    init_process_group("cuda", f"file://{store}", world_size=1, rank=0)
-    try:
-        mesh = make_host_mesh("cuda", model=1)
-        report = {"serve": {}, "train": {}}
-        for arch in TPZ_SERVE:
-            rep, logits, fed = tpz_serve(torch, K, FK, mesh, arch, cf=TPZ_NODROP_CF.get(arch),
-                                         reference=True)
-            torch.save(rep.pop("routes"), work / f"routes_{arch}.pt")
-            report["serve"][arch] = rep
-            np.save(work / f"logits_{arch}.npy",
+def tpz_rank_part(torch, K, FK, mesh, work, rank) -> dict:
+    """Phase 14's (b) part on one rank, in :func:`tp_models_rank`'s
+    process: (a)'s cells on the (1, TPZ_RANKS) mesh, the decode
+    teacher-forced with (a)'s tokens; rank 0 writes the logits; returns the
+    rank's report."""
+    import numpy as np
+
+    report = {"rank": rank, "coordinate": list(mesh.get_coordinate()), "serve": {},
+              "train": {}}
+    for arch in TPZ_SERVE:
+        forced = torch.from_numpy(np.load(work / f"tokens_{arch}.npy"))
+        rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, forced=forced,
+                                   cf=TPZ_NODROP_CF.get(arch))
+        torch.save(rep.pop("routes"), work / f"routes_{arch}_rank{rank}.pt")
+        report["serve"][arch] = rep
+        if rank == 0:
+            np.save(work / f"ranks_logits_{arch}.npy",
                     torch.stack([lg.float() for lg in logits]).cpu().numpy())
-            np.save(work / f"tokens_{arch}.npy", fed.cpu().numpy())
-            rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, forced=fed,
-                                       cf=TPZ_NODROP_CF.get(arch), dtype="float32",
-                                       steps=TPZ_FP32_STEPS)
-            torch.save(rep.pop("routes"), work / f"routes32_{arch}.pt")
-            report["serve"][arch]["float32"] = rep
-            np.save(work / f"logits32_{arch}.npy", torch.stack(logits).cpu().numpy())
-            if arch in TPZ_NODROP_CF:
-                rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, prefill_only=True)
-                del rep["routes"]
-                report["serve"][arch]["published_capacity"] = rep
-                np.save(work / f"logits_{arch}_published.npy", logits[0].float().cpu().numpy())
-        for arch in TPZ_TRAIN:
-            report["train"][arch] = tpz_train_single(torch, K, mesh, arch, work)
-        (work / "single.json").write_text(json.dumps(report))
-    finally:
-        dist.destroy_process_group()
-
-
-def tpz_rank(rank, world, store, work):
-    """(b) one of ``world`` gloo ranks sharing the one card: (a)'s cells on a
-    (1, world) ``(data, model)`` mesh, the decode teacher-forced with (a)'s
-    tokens; rank 0 writes the logits, each rank its report."""
-    import numpy as np
-    import torch
-    import torch.distributed as dist
-    from datetime import timedelta
-    from torch.distributed.device_mesh import init_device_mesh
-
-    K = tpt_process(torch)
-    from repro_torch.kernels.flash_attention import kernel as FK
-
-    work = Path(work)
-    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank,
-                            timeout=timedelta(seconds=600))
-    try:
-        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
-        report = {"rank": rank, "coordinate": list(mesh.get_coordinate()), "serve": {},
-                  "train": {}}
-        for arch in TPZ_SERVE:
-            forced = torch.from_numpy(np.load(work / f"tokens_{arch}.npy"))
-            rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, forced=forced,
-                                       cf=TPZ_NODROP_CF.get(arch))
-            torch.save(rep.pop("routes"), work / f"routes_{arch}_rank{rank}.pt")
-            report["serve"][arch] = rep
+        rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, forced=forced,
+                                   cf=TPZ_NODROP_CF.get(arch), dtype="float32",
+                                   steps=TPZ_FP32_STEPS)
+        torch.save(rep.pop("routes"), work / f"routes32_{arch}_rank{rank}.pt")
+        report["serve"][arch]["float32"] = rep
+        if rank == 0:
+            np.save(work / f"ranks_logits32_{arch}.npy", torch.stack(logits).cpu().numpy())
+        if arch in TPZ_NODROP_CF:
+            rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, prefill_only=True)
+            del rep["routes"]
+            report["serve"][arch]["published_capacity"] = rep
             if rank == 0:
-                np.save(work / f"ranks_logits_{arch}.npy",
-                        torch.stack([lg.float() for lg in logits]).cpu().numpy())
-            rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, forced=forced,
-                                       cf=TPZ_NODROP_CF.get(arch), dtype="float32",
-                                       steps=TPZ_FP32_STEPS)
-            torch.save(rep.pop("routes"), work / f"routes32_{arch}_rank{rank}.pt")
-            report["serve"][arch]["float32"] = rep
-            if rank == 0:
-                np.save(work / f"ranks_logits32_{arch}.npy", torch.stack(logits).cpu().numpy())
-            if arch in TPZ_NODROP_CF:
-                rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, prefill_only=True)
-                del rep["routes"]
-                report["serve"][arch]["published_capacity"] = rep
-                if rank == 0:
-                    np.save(work / f"ranks_logits_{arch}_published.npy",
-                            logits[0].float().cpu().numpy())
-            del logits
-        for arch in TPZ_TRAIN:
-            report["train"][arch] = tpz_train_rank(torch, K, mesh, arch, work, rank)
-        (work / f"rank{rank}.json").write_text(json.dumps(report))
-    finally:
-        dist.destroy_process_group()
+                np.save(work / f"ranks_logits_{arch}_published.npy",
+                        logits[0].float().cpu().numpy())
+        del logits
+    for arch in TPZ_TRAIN:
+        report["train"][arch] = tpz_train_rank(torch, K, mesh, arch, work, rank)
+    return report
 
 
 def route_flips(torch, cfg, batch, want, ranks, steps=TPZ_DECODE_STEPS) -> "torch.Tensor":
@@ -4235,11 +4299,56 @@ def row_errs(torch, got, want):
     return (g - w).norm(dim=-1) / w.norm(dim=-1)
 
 
-def phase_tensor_parallel_zoo(torch):
-    """Phase 14: the MoE and hymba cells tensor-parallel over ``model`` at
-    full width (TPZ_SERVE, TPZ_TRAIN), each part in processes of its own.
-    First, ``flash_attention`` on rank 1's heads at (b)'s prefill shapes
-    (TPZ_FLASH_CASES), as phase 12 (a).  (a) Under NCCL at world size 1: the
+def hold_train_ranks(torch, one, ranks, work, archs, tag, hold, held):
+    """(b)'s train cells against (a)'s, for phases 14 and 15: each rank's
+    losses within TPT_LOSS_REL_TOL and grad norms within TPT_GNORM_REL_TOL of
+    (a)'s; its m after step 1 within TPT_M_REL_TOL of (a)'s slice or twice
+    (a)'s own bf16 error, whichever is larger, and in fp32 within
+    TPZ_FP32_M_TOL (per leaf); no kernel launched; the ranks' losses equal
+    and their replicated leaves bitwise.  Failures go to ``hold``."""
+    for arch in archs:
+        a = one["train"][arch]
+        for r, rep in enumerate(ranks):
+            t = rep["train"][arch]
+            loss_err = max(abs(x / y - 1) for x, y in zip(t["losses"], a["losses"]))
+            norm_err = max(abs(x / y - 1) for x, y in zip(t["grad_norms"], a["grad_norms"]))
+            t.update(loss_rel_err=loss_err, grad_norm_rel_err=norm_err)
+            hold(loss_err <= TPT_LOSS_REL_TOL,
+                 f"{tag} (b) {arch} rank {r}: losses {t['losses']} vs "
+                 f"{a['losses']}")
+            hold(norm_err <= TPT_GNORM_REL_TOL,
+                 f"{tag} (b) {arch} rank {r}: grad norms {t['grad_norms']} vs "
+                 f"{a['grad_norms']}")
+            own = a["m_step1_bf16_vs_fp32_rel_err"]
+            over = {j: (e, own[j]) for j, e in enumerate(t["m_step1_rel_err"])
+                    if e > max(TPT_M_REL_TOL, 2 * own[j])}
+            t["m_step1_max_rel_err"] = max(t["m_step1_rel_err"])
+            t["m_step1_fp32_max_rel_err"] = max(t["m_step1_fp32_rel_err"])
+            hold(not over, f"{tag} (b) {arch} rank {r}: m after step 1 off "
+                          f"(a)'s at leaves (error, (a)'s own bf16 error) {over}")
+            hold(t["m_step1_fp32_max_rel_err"] <= TPZ_FP32_M_TOL,
+                 f"{tag} (b) {arch} rank {r} fp32: m after step 1 "
+                 f"{t['m_step1_fp32_rel_err']}")
+            hold(t["launches"]["flash_attention"] == 0,
+                 f"{tag} (b) {arch} rank {r}: flash_attention launched")
+            hold(t["losses"] == ranks[0]["train"][arch]["losses"],
+                 f"{tag} (b) {arch}: ranks' losses differ")
+        rep0, rep1 = (torch.load(work / f"replicated_{arch}_rank{r}.pt")
+                      for r in range(TPZ_RANKS))
+        hold(all(torch.equal(x, y) for k in rep0 for x, y in zip(rep0[k], rep1[k]))
+             and ranks[0]["train"][arch]["replicated_leaves"] > 0,
+             f"{tag} (b) {arch}: replicated leaves differ across ranks")
+        held.setdefault(arch, {})["train_replicated_leaves_bitwise"] = True
+
+
+def phase_tensor_parallel_zoo(torch, work, out, spawned):
+    """Phase 14's holds and line: the MoE and hymba cells tensor-parallel
+    over ``model`` at full width (TPZ_SERVE, TPZ_TRAIN), each part run in
+    processes of its own (:func:`phase_tensor_parallel_models`), its
+    results under ``work``; ``out`` holds ``flash_attention`` on rank 1's
+    heads at (b)'s prefill shapes (TPZ_FLASH_CASES), as phase 12 (a).
+    ``seconds``: those cases, the parts' own wall times and the holds
+    (``spawned``: the shared processes').  (a) Under NCCL at world size 1: the
     prefill and decode cells bitwise ``T.prefill`` / ``T.decode_step``, the
     train cell bitwise ``train_step`` (both under deterministic algorithms);
     then the same weights and tokens computing in fp32.  (b) Over
@@ -4264,34 +4373,12 @@ def phase_tensor_parallel_zoo(torch):
     flash_attention hopper at the rank's head offset.  (b)'s times are
     gloo's: every collective stages through the host.  Returns the launches
     of (a) and of each rank, by model, and the flash_attention cases."""
-    import gc
-
     import numpy as np
-    import torch.multiprocessing as mp
 
     t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    work = ROOT / "build" / "dist" / "tp_zoo"
-    work.mkdir(parents=True, exist_ok=True)
-    out = {"card": card_name_power()}
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    out["head_offset"] = tp_flash_cases(torch, flush, TPZ_FLASH_CASES)
-    del flush
-    gc.collect()
-    torch.cuda.empty_cache()
-    for name in ("nccl_store", "gloo_store"):
-        (work / name).unlink(missing_ok=True)
-    t0 = time.perf_counter()
-    mp.start_processes(tpz_single, args=(str(work / "nccl_store"), str(work)), nprocs=1,
-                       start_method="spawn", join=True)
     one = out["world_size_1"] = json.loads((work / "single.json").read_text())
-    one["wall_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mp.start_processes(tpz_rank, args=(TPZ_RANKS, str(work / "gloo_store"), str(work)),
-                       nprocs=TPZ_RANKS, start_method="spawn", join=True)
-    wall = time.perf_counter() - t0
     ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TPZ_RANKS)]
+    wall = max(rep["wall_s"] for rep in ranks)
     held, failures = {}, []
 
     def hold(cond, msg):
@@ -4370,50 +4457,409 @@ def phase_tensor_parallel_zoo(torch):
                 "drop_frac_by_rank": [rep["serve"][arch]["published_capacity"]
                                       .get("prefill_drop_frac") for rep in ranks],
                 "note": "capacity is per dispatch shard: not held"}
-    for arch in TPZ_TRAIN:
-        a = one["train"][arch]
-        for r, rep in enumerate(ranks):
-            t = rep["train"][arch]
-            loss_err = max(abs(x / y - 1) for x, y in zip(t["losses"], a["losses"]))
-            norm_err = max(abs(x / y - 1) for x, y in zip(t["grad_norms"], a["grad_norms"]))
-            t.update(loss_rel_err=loss_err, grad_norm_rel_err=norm_err)
-            hold(loss_err <= TPT_LOSS_REL_TOL,
-                  f"tensor_parallel_zoo (b) {arch} rank {r}: losses {t['losses']} vs "
-                  f"{a['losses']}")
-            hold(norm_err <= TPT_GNORM_REL_TOL,
-                  f"tensor_parallel_zoo (b) {arch} rank {r}: grad norms {t['grad_norms']} vs "
-                  f"{a['grad_norms']}")
-            # each leaf within TPT_M_REL_TOL of (a)'s or within twice (a)'s own bf16
-            # error (against fp32 compute), whichever is larger; in fp32 within
-            # TPZ_FP32_M_TOL
-            own = a["m_step1_bf16_vs_fp32_rel_err"]
-            over = {j: (e, own[j]) for j, e in enumerate(t["m_step1_rel_err"])
-                    if e > max(TPT_M_REL_TOL, 2 * own[j])}
-            t["m_step1_max_rel_err"] = max(t["m_step1_rel_err"])
-            t["m_step1_fp32_max_rel_err"] = max(t["m_step1_fp32_rel_err"])
-            hold(not over, f"tensor_parallel_zoo (b) {arch} rank {r}: m after step 1 off "
-                           f"(a)'s at leaves (error, (a)'s own bf16 error) {over}")
-            hold(t["m_step1_fp32_max_rel_err"] <= TPZ_FP32_M_TOL,
-                 f"tensor_parallel_zoo (b) {arch} rank {r} fp32: m after step 1 "
-                 f"{t['m_step1_fp32_rel_err']}")
-            hold(t["launches"]["flash_attention"] == 0,
-                  f"tensor_parallel_zoo (b) {arch} rank {r}: flash_attention launched")
-            hold(t["losses"] == ranks[0]["train"][arch]["losses"],
-                  f"tensor_parallel_zoo (b) {arch}: ranks' losses differ")
-        rep0, rep1 = (torch.load(work / f"replicated_{arch}_rank{r}.pt")
-                      for r in range(TPZ_RANKS))
-        hold(all(torch.equal(x, y) for k in rep0 for x, y in zip(rep0[k], rep1[k]))
-              and ranks[0]["train"][arch]["replicated_leaves"] > 0,
-              f"tensor_parallel_zoo (b) {arch}: replicated leaves differ across ranks")
-        held.setdefault(arch, {})["train_replicated_leaves_bitwise"] = True
+    hold_train_ranks(torch, one, ranks, work, TPZ_TRAIN, "tensor_parallel_zoo", hold, held)
     out["gloo_ranks"] = {"ranks": ranks, "wall_s": wall, "held": held,
                          "note": "gloo stages every collective through the host: these "
                                  "times are not NVLink's; collectives counted over groups "
                                  "of more than one rank"}
-    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds"] = (out["flash_cases_s"] + one["wall_s"] + wall
+                      + time.perf_counter() - t_phase)
+    out["shared_processes"] = spawned
     out["failures"] = failures
     emit({"phase": "tensor_parallel_zoo", **out})
     check(not failures, "tensor_parallel_zoo: " + "; ".join(failures))
+    return ({arch: s["launches"] for arch, s in one["serve"].items()},
+            [{arch: s["launches"] for arch, s in rep["serve"].items()} for rep in ranks],
+            out["head_offset"])
+
+
+# ----------------------------------------------------------------- phase 15
+
+
+def tpr_config(arch, kind, dtype="bfloat16"):
+    """Phase 15's config of ``arch`` for ``kind`` ("serve" or "train"),
+    computing in ``dtype``."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch).replace(compute_dtype=dtype)
+    layers = (TPR_SERVE if kind == "serve" else TPR_TRAIN)[arch][0]
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    return cfg.replace(remat="full") if kind == "train" else cfg
+
+
+def mrope_positions(n, grid=None):
+    """[1, 3, n] int32 M-RoPE positions: all three rows the index, or with
+    ``grid``, text tokens, a ``grid`` x ``grid`` image block (its temporal
+    position constant, height and width the grid) and text tokens past the
+    block's largest position (Qwen2-VL's position rule; ``vlm_positions``'
+    layout at any length)."""
+    import numpy as np
+
+    if grid is None:
+        return np.broadcast_to(np.arange(n, dtype=np.int32), (1, 3, n)).copy()
+    t0 = (n - grid * grid) // 2
+    hh, ww = np.meshgrid(np.arange(grid), np.arange(grid), indexing="ij")
+    block = np.stack([np.full(grid * grid, t0), t0 + hh.ravel(), t0 + ww.ravel()])
+    start = t0 + grid
+    pos = np.concatenate([np.tile(np.arange(t0), (3, 1)), block,
+                          np.tile(np.arange(start, start + n - t0 - grid * grid), (3, 1))],
+                         axis=1)
+    return pos[None].astype(np.int32)
+
+
+def tpr_inputs(cfg, b, n, grid=None, frames=None, seed=0):
+    """Numpy inputs of ``b`` x ``n`` from ``seed``: tokens, or embeddings and
+    positions (:func:`mrope_positions`) for an embeddings model; an
+    encoder-decoder's ``frames`` frame embeddings."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeds":
+        out = {"embeds": rng.standard_normal((b, n, cfg.d_model), dtype=np.float32),
+               "positions": np.repeat(mrope_positions(n, grid), b, axis=0)}
+    else:
+        out = {"tokens": rng.integers(0, cfg.vocab_size, (b, n), dtype=np.int64)
+               .astype(np.int32)}
+    if cfg.is_encdec:
+        out["src_embeds"] = rng.standard_normal((b, frames, cfg.d_model), dtype=np.float32)
+    return out
+
+
+def tpr_serve(torch, K, FK, mesh, arch, forced=None, reference=False, dtype="bfloat16",
+              steps=TPZ_DECODE_STEPS, image=False):
+    """``arch``'s prefill cell at TPR_SERVE's batch and prompt, then
+    ``steps`` decode-cell steps (:func:`tp_serve`); ``image``: qwen2-vl's
+    image-block prompt, prefill only."""
+    cfg = tpr_config(arch, "serve", dtype)
+    _, b, n = TPR_SERVE[arch]
+    batch = tpr_inputs(cfg, b, n, VLM_GRID if image else None,
+                       TPR_FRAMES if cfg.is_encdec else None)
+    pos0 = int(batch["positions"].max()) + 1 if "positions" in batch else n
+    seq = n + TPZ_DECODE_STEPS + (arch == TPR_HEAD_CACHE)     # odd for the KV-head cache
+    return tp_serve(torch, K, FK, mesh, cfg, batch, pos0, seq, "tensor_parallel_rest",
+                    forced, image, reference, steps)
+
+
+def tpr_train_cell(torch, mesh, arch, dtype="bfloat16"):
+    """Phase 15's train config of ``arch``, its cell on ``mesh`` and its
+    TPZ_TRAIN_STEPS batches (numpy seed 0 labels and tokens; embeddings,
+    image-block positions and frames from seeds 1, 2, ...)."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg = tpr_config(arch, "train", dtype)
+    _, b, seq = TPR_TRAIN[arch]
+    tcfg = TrainConfig(optimizer=AdamWConfig(learning_rate=TPZ_LR, warmup_steps=1))
+    with use_mesh(mesh, rules_for("train", cfg)):
+        cell = SP.build_cell(cfg, ShapeConfig("train_tp", seq, b, "train"), mesh, tcfg)
+    rng = np.random.default_rng(0)
+    batches = []
+    for i in range(TPZ_TRAIN_STEPS):
+        t = rng.integers(0, cfg.vocab_size, (b, seq + 1), dtype=np.int64).astype(np.int32)
+        batch = tpr_inputs(cfg, b, seq, VLM_GRID, seq if cfg.is_encdec else None, seed=i + 1)
+        if "tokens" in batch:
+            batch["tokens"] = t[:, :-1]
+        batch["labels"] = t[:, 1:]
+        batches.append(batch)
+    return cfg, tcfg, cell, batches
+
+
+def tpr_serve_runs(torch, K, FK, mesh, arch, work, rank=None):
+    """(a)'s (``rank`` None, world size 1: bitwise the single-device
+    functions) or (b)'s (``rank``: fed (a)'s tokens) serve runs of
+    ``arch``: bf16, then fp32 on the same weights and tokens
+    (TPZ_FP32_STEPS steps), then qwen2-vl's image-block prompt in both.
+    The bf16 runs of (a) held bitwise to ``T.prefill`` / ``T.decode_step``.
+    Writes the logits (and (a)'s fed tokens) under ``work``; returns the
+    reports."""
+    import numpy as np
+
+    tail = "" if rank is None else "_ranks"
+    forced = (None if rank is None
+              else torch.from_numpy(np.load(work / f"tokens_{arch}.npy")))
+
+    def save(name, logits):
+        if rank in (None, 0):
+            np.save(work / f"{name}{tail}_{arch}.npy",
+                    torch.stack([lg.float() for lg in logits]).cpu().numpy())
+
+    rep, logits, fed = tpr_serve(torch, K, FK, mesh, arch, forced=forced,
+                                 reference=rank is None)
+    del rep["routes"]
+    report = rep
+    save("logits", logits)
+    if rank is None:
+        np.save(work / f"tokens_{arch}.npy", fed.cpu().numpy())
+        forced = fed
+    rep, logits, _ = tpr_serve(torch, K, FK, mesh, arch, forced=forced, dtype="float32",
+                               steps=TPZ_FP32_STEPS)
+    del rep["routes"]
+    report["float32"] = rep
+    save("logits32", logits)
+    if arch == TPR_VLM:
+        for dtype, name in (("bfloat16", "image"), ("float32", "image32")):
+            rep, logits, _ = tpr_serve(torch, K, FK, mesh, arch, dtype=dtype, image=True,
+                                       reference=rank is None and dtype == "bfloat16")
+            del rep["routes"]
+            report[name] = rep
+            save(name, logits)
+    return report
+
+
+def tpr_single_part(torch, K, FK, mesh, work) -> dict:
+    """Phase 15's (a) part, in :func:`tp_models_single`'s process: every
+    model's prefill and decode cells, then every train cell, on the (1, 1)
+    mesh; writes its logits and greedy tokens, returns its report."""
+    return {"serve": {arch: tpr_serve_runs(torch, K, FK, mesh, arch, work)
+                      for arch in TPR_SERVE},
+            "train": {arch: tpz_train_single(torch, K, mesh, arch, work, tpr_train_cell,
+                                             "tensor_parallel_rest")
+                      for arch in TPR_TRAIN}}
+
+
+def tpr_rank_part(torch, K, FK, mesh, work, rank) -> dict:
+    """Phase 15's (b) part on one rank, as :func:`tpz_rank_part`."""
+    return {"rank": rank, "coordinate": list(mesh.get_coordinate()),
+            "serve": {arch: tpr_serve_runs(torch, K, FK, mesh, arch, work, rank)
+                      for arch in TPR_SERVE},
+            "train": {arch: tpz_train_rank(torch, K, mesh, arch, work, rank, tpr_train_cell,
+                                           "tensor_parallel_rest")
+                      for arch in TPR_TRAIN}}
+
+
+# phases 14 and 15's parts, by work directory under build/dist: (a)'s, (b)'s
+TP_MODEL_PARTS = {"tp_zoo": (tpz_single_part, tpz_rank_part),
+                  "tp_rest": (tpr_single_part, tpr_rank_part)}
+
+
+def tp_models_single(_rank, store, work_root):
+    """(a) of phases 14 and 15 in a process of its own, under NCCL at world
+    size 1 (a (1, 1) mesh): each part in turn writes its report (with its
+    own wall time) to ``single.json`` in its work directory."""
+    import os
+
+    # cuBLAS's reproducible workspace, for the train parts' deterministic
+    # algorithms: set before the first handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as dist
+
+    K = tpt_process(torch)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+
+    init_process_group("cuda", f"file://{store}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh("cuda", model=1)
+        for name, (part, _) in TP_MODEL_PARTS.items():
+            work = Path(work_root) / name
+            t0 = time.perf_counter()
+            report = part(torch, K, FK, mesh, work)
+            report["wall_s"] = time.perf_counter() - t0
+            (work / "single.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_models_rank(rank, world, store, work_root):
+    """(b) of phases 14 and 15: one of ``world`` gloo ranks sharing the one
+    card, a (1, world) ``(data, model)`` mesh; each part in turn writes the
+    rank's report (with its own wall time) to ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+    from torch.distributed.device_mesh import init_device_mesh
+
+    K = tpt_process(torch)
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                            timeout=timedelta(seconds=600))
+    try:
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        for name, (_, part) in TP_MODEL_PARTS.items():
+            work = Path(work_root) / name
+            t0 = time.perf_counter()
+            report = part(torch, K, FK, mesh, work, rank)
+            report["wall_s"] = time.perf_counter() - t0
+            (work / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tensor_parallel_models(torch):
+    """Phases 14 and 15 (:func:`phase_tensor_parallel_zoo`,
+    :func:`phase_tensor_parallel_rest`): each phase's flash_attention cases
+    in this process, then both phases' (a) parts in one spawned process and
+    both phases' (b) parts in one spawn of TPZ_RANKS ranks, so each
+    process's start-up is paid once for the two; then each phase's holds and
+    its line.  Returns the two phases' results."""
+    import gc
+
+    import torch.multiprocessing as mp
+
+    work_root = ROOT / "build" / "dist"
+    outs = {}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for name, cases in (("tp_zoo", TPZ_FLASH_CASES), ("tp_rest", TPR_FLASH_CASES)):
+        (work_root / name).mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        outs[name] = {"card": card_name_power(), "head_offset": tp_flash_cases(torch, flush, cases)}
+        outs[name]["flash_cases_s"] = time.perf_counter() - t0
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    stores = {k: work_root / f"tp_models_{k}_store" for k in ("nccl", "gloo")}
+    for store in stores.values():
+        store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(tp_models_single, args=(str(stores["nccl"]), str(work_root)), nprocs=1,
+                       start_method="spawn", join=True)
+    t1 = time.perf_counter()
+    mp.start_processes(tp_models_rank, args=(TPZ_RANKS, str(stores["gloo"]), str(work_root)),
+                       nprocs=TPZ_RANKS, start_method="spawn", join=True)
+    spawned = {"world_size_1_process_s": t1 - t0,
+               "gloo_ranks_processes_s": time.perf_counter() - t1,
+               "note": "both phases' parts and each process's start-up"}
+    zoo = phase_tensor_parallel_zoo(torch, work_root / "tp_zoo", outs["tp_zoo"], spawned)
+    rest = phase_tensor_parallel_rest(torch, work_root / "tp_rest", outs["tp_rest"], spawned)
+    return zoo, rest
+
+
+def tpr_flash_expected(cfg, image=False) -> tuple:
+    """(flash_attention launches of one prefill, its route): the
+    self-attention of each decoder layer on the kernel route, an encoder's
+    and the cross-attention's too; none on the plain route (qwen2-vl's image
+    block) or without attention (xLSTM)."""
+    if not any(seg.has_attention for seg in cfg.decoder_plan()):
+        return 0, None
+    if image:
+        return 0, "plain"
+    return (cfg.enc_layers + 2 * cfg.num_layers if cfg.is_encdec else cfg.num_layers), "kernel"
+
+
+def phase_tensor_parallel_rest(torch, work, out, spawned):
+    """Phase 15's holds and line: the xLSTM, qwen2-vl and seamless cells
+    tensor-parallel over ``model`` at full width (TPR_SERVE, TPR_TRAIN), and
+    qwen2-1.5b's decode cell with its cache split by KV heads, each part run
+    in processes of its own with phase 14's
+    (:func:`phase_tensor_parallel_models`), its results under ``work``;
+    ``out`` holds ``flash_attention`` on rank 1's heads at (b)'s prefill
+    shapes (TPR_FLASH_CASES: non-causal, and Sq != Sk); ``seconds`` as
+    phase 14's.  (a) Under
+    NCCL at world size 1: the prefill and decode cells bitwise
+    ``T.prefill`` / ``T.decode_step``, the train cell bitwise
+    ``train_step`` (under deterministic algorithms); then the same weights
+    and tokens computing in fp32.  (b) Over TPZ_RANKS gloo ranks sharing the
+    card, fed (a)'s tokens, held to (a) with phase 14's limits:
+
+    * fp32: logits within TPZ_FP32_ROW_TOL (row norm), m after step 1
+      within TPZ_FP32_M_TOL of (a)'s slice, per leaf;
+    * bf16: logits within TP_LOGITS_ROW_TOL or twice (a)'s own bf16 error
+      (against its fp32 run), whichever is larger; each fed token within
+      TOL of (a)'s top logit; train losses within TPT_LOSS_REL_TOL, grad
+      norms within TPT_GNORM_REL_TOL; m after step 1 within TPT_M_REL_TOL
+      of (a)'s slice or twice (a)'s own bf16 error, per leaf; replicated
+      leaves bitwise across the ranks.
+
+    Every prefill's flash_attention launches (:func:`tpr_flash_expected`)
+    hopper at the rank's head offset, its route counted; (b)'s qwen2-1.5b
+    decode cache split by KV heads, the others' by sequence.  (b)'s times
+    are gloo's.  Returns the launches of (a) and of each rank, by model, and
+    the flash_attention cases."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    one = out["world_size_1"] = json.loads((work / "single.json").read_text())
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TPZ_RANKS)]
+    wall = max(rep["wall_s"] for rep in ranks)
+    held, failures = {}, []
+
+    def hold(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    def flash_ok(s, cfg, image, offset):
+        n, route = tpr_flash_expected(cfg, image)
+        routes = {"kernel": int(route == "kernel"), "plain": int(route == "plain")}
+        return (s["launches"]["flash_attention"] == n
+                and s["flash_attention_variants"] == {"hopper": n, "generic": 0}
+                and s["flash_attention_calls_by_head_offset"] == ({str(offset): n} if n else {})
+                and s["prefill_routes"] == routes)
+
+    for arch in TPR_SERVE:
+        cfg = tpr_config(arch, "serve")
+        per = cfg.padded_heads // TPZ_RANKS
+        load = lambda name: torch.from_numpy(np.load(work / f"{name}_{arch}.npy"))  # noqa: E731
+        want, got = load("logits"), load("logits_ranks")
+        want32, got32 = load("logits32"), load("logits32_ranks")
+        n32 = 1 + TPZ_FP32_STEPS
+        errs, errs32 = row_errs(torch, got, want), row_errs(torch, got32, want32)
+        own = row_errs(torch, want[:n32], want32).max().item()
+        limit = max(TP_LOGITS_ROW_TOL, 2 * own)
+        tol = TOL["bfloat16"]
+        mine, top = got.argmax(-1), want.max(-1).values
+        gap = top - want.gather(-1, mine[..., None])[..., 0]
+        hold(errs.max().item() <= limit,
+             f"tensor_parallel_rest (b) {arch}: logits row errors {errs.tolist()} over {limit}")
+        hold(errs32.max().item() <= TPZ_FP32_ROW_TOL,
+             f"tensor_parallel_rest (b) {arch} fp32: logits row errors {errs32.tolist()}")
+        hold(bool((gap <= tol["atol"] + tol["rtol"] * top.abs()).all()),
+             f"tensor_parallel_rest (b) {arch}: a fed token is {gap.max().item()} below (a)'s "
+             "top logit")
+        a = one["serve"][arch]
+        hold(flash_ok(a, cfg, False, 0),
+             f"tensor_parallel_rest (a) {arch}: {a['launches']}, {a['flash_attention_variants']}, "
+             f"{a['flash_attention_calls_by_head_offset']}, {a['prefill_routes']}")
+        for r, rep in enumerate(ranks):
+            s = rep["serve"][arch]
+            hold(flash_ok(s, cfg, False, r * per),
+                 f"tensor_parallel_rest (b) {arch} rank {r}: {s['launches']}, "
+                 f"{s['flash_attention_variants']}, "
+                 f"{s['flash_attention_calls_by_head_offset']}, {s['prefill_routes']}")
+            spec = s.get("decode_kv_spec")
+            if spec is not None:
+                by_heads = arch == TPR_HEAD_CACHE
+                hold(spec[3 if by_heads else 2] == "model" and spec[2 if by_heads else 3] is None,
+                     f"tensor_parallel_rest (b) {arch}: decode cache spec {spec}")
+        held[arch] = {"logits_row_err": errs.max(-1).values.tolist(), "limit": limit,
+                      "bf16_own_row_err": own,
+                      "greedy_tokens_equal": int((mine == want.argmax(-1)).sum()),
+                      "greedy_tokens": mine.numel(),
+                      "float32_logits_row_err": errs32.max().item(),
+                      "decode_kv_spec": ranks[0]["serve"][arch].get("decode_kv_spec")}
+        if arch == TPR_VLM:
+            w, g = load("image"), load("image_ranks")
+            w32, g32 = load("image32"), load("image32_ranks")
+            e, e32 = row_errs(torch, g, w).max().item(), row_errs(torch, g32, w32).max().item()
+            own_i = row_errs(torch, w, w32).max().item()
+            lim = max(TP_LOGITS_ROW_TOL, 2 * own_i)
+            hold(e <= lim and e32 <= TPZ_FP32_ROW_TOL,
+                 f"tensor_parallel_rest (b) {arch} image block: logits row errors {e} (limit "
+                 f"{lim}), fp32 {e32}")
+            hold(flash_ok(a["image"], cfg, True, 0)
+                 and all(flash_ok(rep["serve"][arch]["image"], cfg, True, 0) for rep in ranks),
+                 f"tensor_parallel_rest {arch} image block: not the plain route alone")
+            held[arch]["image_block"] = {"logits_row_err": e, "limit": lim,
+                                         "bf16_own_row_err": own_i, "float32_logits_row_err": e32}
+    hold_train_ranks(torch, one, ranks, work, TPR_TRAIN, "tensor_parallel_rest", hold, held)
+    out["gloo_ranks"] = {"ranks": ranks, "wall_s": wall, "held": held,
+                         "note": "gloo stages every collective through the host: these "
+                                 "times are not NVLink's; collectives counted over groups "
+                                 "of more than one rank"}
+    out["seconds"] = (out["flash_cases_s"] + one["wall_s"] + wall
+                      + time.perf_counter() - t_phase)
+    out["shared_processes"] = spawned
+    out["failures"] = failures
+    emit({"phase": "tensor_parallel_rest", **out})
+    check(not failures, "tensor_parallel_rest: " + "; ".join(failures))
     return ({arch: s["launches"] for arch, s in one["serve"].items()},
             [{arch: s["launches"] for arch, s in rep["serve"].items()} for rep in ranks],
             out["head_offset"])
@@ -4547,8 +4993,13 @@ def main() -> int:
     # 14. the MoE and hymba cells tensor-parallel: mixtral-8x7b (TP-MoE),
     # phi3.5-moe (EP) and hymba-1.5b (its Mamba mixer split) at full width,
     # prefill, decode and train, at world size 1 (NCCL, bitwise) and over 2
-    # gloo ranks sharing the one card
-    tpz_launches, tpz_rank_launches, tpz_cases = phase_tensor_parallel_zoo(torch)
+    # gloo ranks sharing the one card; 15. the same for the xLSTM, qwen2-vl
+    # and seamless cells: xlstm-1.3b (its mLSTM channels split), qwen2-vl-7b
+    # (M-RoPE) and seamless-m4t-medium (the encoder and cross-attention),
+    # and qwen2-1.5b's decode cache split by KV heads; the two phases' parts
+    # share their processes
+    ((tpz_launches, tpz_rank_launches, tpz_cases),
+     (tpr_launches, tpr_rank_launches, tpr_cases)) = phase_tensor_parallel_models(torch)
 
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
@@ -4575,7 +5026,12 @@ def main() -> int:
                                         "world_size_1": {a: n[name]
                                                          for a, n in tpz_launches.items()},
                                         "gloo_ranks": [{a: n[name] for a, n in r.items()}
-                                                       for r in tpz_rank_launches]}},
+                                                       for r in tpz_rank_launches]},
+                                    "tensor_parallel_rest": {
+                                        "world_size_1": {a: n[name]
+                                                         for a, n in tpr_launches.items()},
+                                        "gloo_ranks": [{a: n[name] for a, n in r.items()}
+                                                       for r in tpr_rank_launches]}},
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
@@ -4613,17 +5069,20 @@ def main() -> int:
                     return tp_rank_launches[1]["flash_attention"]
                 if c["case"] in TPZ_FLASH_ARCH:
                     return tpz_rank_launches[1][TPZ_FLASH_ARCH[c["case"]]]["flash_attention"]
+                if c["case"] in TPR_FLASH_ARCH:
+                    return tpr_rank_launches[1][TPR_FLASH_ARCH[c["case"]]]["flash_attention"]
                 return None
 
             row["tensor_parallel_cases"] = [
                 {"case": c["case"], "dtype": c["dtype"], "q": c["q"], "window": c["window"],
+                 "causal": c["causal"], "kv_len": c["kv_len"],
                  "head_offset": c["timed_offset"], "variant": c["variant"],
                  "launches": launches_of(c),
                  "full_launch_ms": c["full_launch_ms"],
                  "full_launch_share_ms": c["full_launch_share_ms"],
                  **{k: c[k] for k in ("max_abs_err", "max_row_rel_err", "ms", "generic_ms",
                                       "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-                for c in tp_cases + tpz_cases]
+                for c in tp_cases + tpz_cases + tpr_cases]
         if name in COPY_MAIN_CASE:
             # the serve path's call (both pools, every layer: two launches),
             # the parent's call pattern for it, and the launches by variant

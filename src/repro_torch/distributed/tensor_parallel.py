@@ -76,11 +76,17 @@ def shard_of(logical: str, total: int) -> Shard:
     whole = Shard(0, total, total)
     if not is_device_mesh(mesh):
         return whole
-    axes = entry_axes(logical_pspec((logical,), (total,), mesh)[0])
+    return entry_shard(logical_pspec((logical,), (total,), mesh)[0], total)
+
+
+def entry_shard(entry, total: int) -> Shard:
+    """This rank's shard of a ``total``-long dimension that a spec entry
+    (``None``, a mesh axis, or a tuple of them) puts on the active mesh."""
+    axes = entry_axes(entry)
     if not axes:
-        return whole
+        return Shard(0, total, total)
     if len(axes) > 1:
-        raise NotImplementedError(f"tensor-parallel {logical!r} over several mesh axes {axes}")
+        raise NotImplementedError(f"a tensor-parallel dimension over several mesh axes {axes}")
     return axis_shard(axes[0], total)
 
 

@@ -13,9 +13,9 @@ every output under the cell's specs; the cell reduces what crosses ranks
 itself:
 
 * train: data parallel over the batch's mesh axes with ZeRO-1 AdamW
-  moments and, over ``model`` > 1, tensor parallel for the dense decoders,
-  the MoE models and hymba (the weights split as for prefill; the loss's
-  vocabulary split too, ``train/loss.py``).  Each rank runs
+  moments and, over ``model`` > 1, tensor parallel for every architecture
+  (the weights split as for prefill; the loss's vocabulary split too,
+  ``train/loss.py``).  Each rank runs
   ``step_grads`` on its parameter shards under the mesh and the rules the
   cell was built with: the reference's sharding constraints are
   collectives whose backward is the one GSPMD derives
@@ -31,20 +31,21 @@ itself:
   element is ``apply_update``'s, so at world size 1 the step is bitwise
   ``train_step``'s.
 * prefill / decode: ``T.prefill`` / ``T.decode_step`` under the mesh and
-  the rules the cell was built with.  Over ``model`` > 1 the dense
-  decoders, the MoE models and hymba run tensor-parallel on their parameter
-  shards (heads, KV heads, ffn and vocab split; TP-MoE's expert d_ff or
-  EP's experts; hymba's Mamba channels; the decode cache split by sequence,
-  the Mamba states by channel), the reference's
-  sharding constraints made explicit collectives (``models/blocks.py``,
-  ``distributed/tensor_parallel.py``).  The logits are gathered to the whole
-  vocabulary; the cache comes back as this rank's shard (the prefill's split
-  by KV heads where the rules split them, the decode's by sequence).
+  the rules the cell was built with.  Over ``model`` > 1 every
+  architecture runs tensor-parallel on its parameter shards (heads, KV
+  heads, ffn and vocab split; TP-MoE's expert d_ff or EP's experts; the
+  Mamba mixer's and the mLSTM's channels; the encoder-decoder's memory KV
+  by KV heads), the reference's sharding constraints made explicit
+  collectives (``models/blocks.py``, ``models/xlstm.py``,
+  ``distributed/tensor_parallel.py``).  The logits are gathered to the
+  whole vocabulary; the cache comes back as this rank's shard under the
+  cell's specs: the prefill's KV split by KV heads where the rules split
+  them, the decode's by sequence, or by KV heads where the mesh does not
+  divide its length; the Mamba and mLSTM states and the conv states by
+  channel; the mLSTM / sLSTM cell states whole on every ``model`` rank.
 
-What is not ported raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item (:func:`_require_executable`): every cell of the other families
-(xLSTM, M-RoPE, encoder-decoder) over a mesh axis of size > 1 that a
-parameter or cache spec names, and a decode cache split by KV heads.
+A cell runs on a ``DeviceMesh``; on a ``MeshSpec`` (the dry run's
+production meshes) it only accounts, and its callable refuses to run.
 """
 
 from __future__ import annotations
@@ -275,53 +276,9 @@ class Cell:
     out_specs: tuple
 
 
-# families whose tensor-parallel cells are not ported: (name, ROADMAP.md item)
-TP_TODO = {
-    "xlstm": ("xLSTM (mLSTM / sLSTM blocks)", "Queue 1 item 2 (d)"),
-    "mrope": ("qwen2-vl's M-RoPE embeddings path", "Queue 1 item 2 (e)"),
-    "encdec": ("the encoder-decoder's cross-attention", "Queue 1 item 2 (f)"),
-}
-TP_HEAD_CACHE_TODO = "Queue 1 item 2 (g)"     # a decode cache split by KV heads
-
-
-def _family(cfg: ModelConfig) -> Optional[str]:
-    """The family of ``cfg`` (``moe``, ``hymba`` or a :data:`TP_TODO`
-    one), or None for a dense decoder (token input, RoPE, every segment
-    ``dense``)."""
-    kinds = {seg.kind for seg in cfg.decoder_plan()}
-    if cfg.is_encdec:
-        return "encdec"
-    if cfg.mrope_sections is not None or cfg.input_mode == "embeds":
-        return "mrope"
-    if "moe" in kinds:
-        return "moe"
-    if "hymba" in kinds:
-        return "hymba"
-    if kinds & {"mlstm", "slstm"}:
-        return "xlstm"
-    return None
-
-
-def _split_axes(mesh, specs) -> list:
-    """The mesh axes of size > 1 that any spec in ``specs`` names."""
-    sizes = mesh_spec(mesh).sizes
-    return sorted({a for tree in specs for spec in tree_flatten(tree, is_tuple)[0]
-                   for e in spec for a in entry_axes(e) if sizes[a] > 1})
-
-
-def _require_executable(cfg: ModelConfig, kind: str, mesh, specs) -> None:
-    """Raise where the cell cannot run on ``mesh``: a MeshSpec (accounting
-    only), or ``specs`` (params and the cache's non-batch dims) split over
-    an axis of size > 1 for a family not yet ported."""
+def _require_device_mesh(mesh) -> None:
     if not is_device_mesh(mesh):
         raise TypeError("a cell executes on a DeviceMesh; a MeshSpec only accounts")
-    big = _split_axes(mesh, specs)
-    family = _family(cfg)
-    if big and family in TP_TODO:
-        what, item = TP_TODO[family]
-        raise NotImplementedError(
-            f"the {kind} cell of {cfg.name} over {big}: tensor-parallel {what} is not "
-            f"ported (ROADMAP.md, {item})")
 
 
 def _leaf_shards(p_specs, mesh) -> list:
@@ -344,7 +301,7 @@ def _unbatched(c_specs) -> list:
 
 
 def _train_fn(cfg, tcfg, mesh, rules, p_specs, o_specs, b_specs, params, opt_state, batch):
-    _require_executable(cfg, "train", mesh, (p_specs,))
+    _require_device_mesh(mesh)
     groups = [mesh.get_group(a) for a in entry_axes(b_specs["labels"][0])]
     labels, mask = batch["labels"], batch.get("loss_mask")
     n_local = (mask.sum() if mask is not None else torch.tensor(labels.numel())).to(
@@ -369,9 +326,11 @@ def _train_fn(cfg, tcfg, mesh, rules, p_specs, o_specs, b_specs, params, opt_sta
     return params, opt_state, metrics
 
 
-# cache entries a rank computes on its own channels (the Mamba states): the
-# prefill cell holds them as this rank's shards from the start
-RANK_LOCAL_STATES = ("ssm", "conv")
+# cache entries a rank computes as its own shard (the Mamba and mLSTM states
+# on its channels, the memory KV on its KV heads; the sLSTM's conv state,
+# which its block slices): the prefill cell holds them as this rank's shards
+# from the start
+RANK_LOCAL_STATES = ("ssm", "conv", "xk", "xv")
 
 
 def _cache_shards(cache, c_local, mesh, rank_local: bool) -> list:
@@ -381,9 +340,9 @@ def _cache_shards(cache, c_local, mesh, rank_local: bool) -> list:
                  else t) for k, t in seg.items()} for seg, seg_s in zip(cache, c_local)]
 
 
-def _prefill_fn(cfg, shape, mesh, rules, p_specs, c_specs, params, batch):
+def _prefill_fn(cfg, shape, mesh, rules, c_specs, params, batch):
     c_local = _unbatched(c_specs)
-    _require_executable(cfg, "prefill", mesh, (p_specs, c_local))
+    _require_device_mesh(mesh)
     first = tree_flatten(batch)[0][0]
     with use_mesh(mesh, rules):
         cache = T.init_cache(cfg, first.shape[0], shape.seq_len,
@@ -395,16 +354,8 @@ def _prefill_fn(cfg, shape, mesh, rules, p_specs, c_specs, params, batch):
     return logits, _cache_shards(cache, c_local, mesh, rank_local=False)
 
 
-def _decode_fn(cfg, shape, mesh, rules, p_specs, c_specs, params, cache, tokens, cur_pos):
-    c_local = _unbatched(c_specs)
-    _require_executable(cfg, "decode", mesh, (p_specs, c_local))
-    sizes = mesh_spec(mesh).sizes
-    for seg in c_local:
-        if any(sizes[a] > 1 for a in entry_axes(seg["k"][3])):
-            raise NotImplementedError(
-                f"the decode cell of {cfg.name}: a cache split by KV heads (its length "
-                f"{shape.seq_len} not divisible by the mesh) is not ported "
-                f"(ROADMAP.md, {TP_HEAD_CACHE_TODO})")
+def _decode_fn(cfg, shape, mesh, rules, params, cache, tokens, cur_pos):
+    _require_device_mesh(mesh)
     with use_mesh(mesh, rules):
         return T.decode_step(cfg, params, cache, tokens, cur_pos, seq_len=shape.seq_len)
 
@@ -434,9 +385,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     logits = _meta((shape.global_batch, cfg.padded_vocab), torch_dtype(cfg.compute_dtype))
     out, out_specs = (logits, a_cache), (bp + (None,), c_specs)
     if shape.kind == "prefill":
-        fn = partial(_prefill_fn, cfg, shape, mesh, rules, p_specs, c_specs)
+        fn = partial(_prefill_fn, cfg, shape, mesh, rules, c_specs)
         return Cell(fn, (a_params, a_batch), (p_specs, b_specs), out, out_specs)
 
-    fn = partial(_decode_fn, cfg, shape, mesh, rules, p_specs, c_specs)
+    fn = partial(_decode_fn, cfg, shape, mesh, rules)
     return Cell(fn, (a_params, a_cache, a_batch["tokens"], a_batch["cur_pos"]),
                 (p_specs, c_specs, bp, bp), out, out_specs)

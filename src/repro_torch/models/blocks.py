@@ -47,7 +47,14 @@ backward GSPMD gives them (``distributed/tensor_parallel.py``):
   written by the rank whose slice holds its slot, each rank attends every
   head over its slice, and the slices' softmax parts are combined
   (flash-decoding: a max, then one sum of the rescaled numerators and
-  normalisers).
+  normalisers).  Where the mesh does not divide the cache's length, the
+  rules split its KV heads instead: each rank writes and attends its own KV
+  heads for the query heads that read them, and where those are not its own
+  heads one sum combines every head's output (``_decode_kv_heads``).
+* cross-attention (the encoder-decoder): q on this rank's heads, the
+  memory's K and V from the ``wk`` / ``wv`` column shards gathered to whole
+  KV heads; the cached memory KV (``xk`` / ``xv``) is each rank's own KV
+  heads, which ``cross_decode`` attends as the decode cache above.
 * MLP: ``w_gate`` / ``w_up`` / ``w_in`` / ``b_in`` column shards over
   ``d_ff``, ``w_down`` / ``w_out`` row shards; the partial products are
   summed, then ``b_out`` is added once; the input's partial gradients are
@@ -57,6 +64,9 @@ backward GSPMD gives them (``distributed/tensor_parallel.py``):
 * hymba's Mamba mixer on ``ssm_inner`` channels (``models/ssm.py``), its
   states split the same way; its output, as the attention's, is summed
   before the branch's RMS norm.
+* xLSTM (``models/xlstm.py``): the mLSTM block on ``ssm_inner`` channels,
+  its conv state split the same way and its cell whole on every rank; the
+  sLSTM block whole but for its FFN on ``ffn``.
 
 Under M-RoPE the contiguous cache is filled by sequence index, and the
 ``pos`` row holds each entry's temporal position, which the decode mask
@@ -74,8 +84,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, Segment
-from ..distributed.tensor_parallel import (Shard, all_gather, all_reduce_sum, shard_of,
-                                           to_local_region)
+from ..distributed.sharding import active_mesh, is_device_mesh, logical_pspec
+from ..distributed.tensor_parallel import (Shard, all_gather, all_reduce_sum, entry_shard,
+                                           shard_of, to_local_region)
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_attention
 from .common import ParamSpec, fan_in_init, ones_init, zeros_init
@@ -98,6 +109,7 @@ from .xlstm import (
     mlstm_block_specs,
     slstm_block_forward,
     slstm_block_specs,
+    slstm_d_ff,
 )
 
 # names under which an xLSTM layer's cache keeps its state tuple
@@ -116,8 +128,11 @@ class BlockCtx:
     memory: Optional[torch.Tensor] = None       # encoder output [B, Sm, d]
     memory_positions: Optional[torch.Tensor] = None   # [B, Sm]
     # decode: the contiguous cache's global length where the mesh may split
-    # it by sequence (None: the cache is whole)
+    # it by sequence or by KV heads (None: the cache is whole)
     seq_len: Optional[int] = None
+    # decode under M-RoPE: the first free slot of the contiguous cache [B],
+    # counted over the whole cache (None: counted in the layer's own cache)
+    fill: Optional[torch.Tensor] = None
 
 
 # ----------------------------------------------------------------- attention
@@ -149,10 +164,13 @@ def attn_param_specs(cfg: ModelConfig) -> dict:
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, hs: Shard, kvs: Shard,
-         whole_q: bool):
-    """(q, k, v [B,S,*,D], h0): k and v over every KV head; q over this
-    rank's heads from global head ``h0`` where its ``hs`` columns are whole
-    heads and ``whole_q`` is false, else over every head (``h0`` 0).
+         whole_q: bool, mem: Optional[torch.Tensor] = None, gather_kv: bool = True):
+    """(q, k, v [B,S,*,D], h0): k and v over every KV head (with
+    ``gather_kv`` false, this rank's ``kvs`` columns: its own KV heads
+    where they are whole heads); q over this rank's heads from global head
+    ``h0`` where its ``hs`` columns are whole heads and ``whole_q`` is
+    false, else over every head (``h0`` 0).  With ``mem`` (cross-attention)
+    k and v are the memory's, without bias, as the reference computes them.
 
     Backward: ``x`` enters the column shards of ``wq`` (and of ``wk`` /
     ``wv`` where they are split) through ``to_local_region``, so its
@@ -162,20 +180,26 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, hs: Shard, kvs: Shard,
     gradient, summed over the ranks' heads, is already whole."""
     b, s, _ = x.shape
     x_cols = to_local_region(x, hs)
-    x_kv = (x_cols if hs.split else to_local_region(x, kvs)) if kvs.split else x
+    if mem is not None:
+        x_kv = to_local_region(mem, kvs)
+    else:
+        x_kv = (x_cols if hs.split else to_local_region(x, kvs)) if kvs.split else x
     q = x_cols @ p["wq"]
     k = x_kv @ p["wk"]
     v = x_kv @ p["wv"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    k, v = all_gather(k, -1, kvs), all_gather(v, -1, kvs)
-    k, v = to_local_region(k, hs), to_local_region(v, hs)
+        q = q + p["bq"]
+        if mem is None:
+            k, v = k + p["bk"], v + p["bv"]
+    if gather_kv:
+        k, v = all_gather(k, -1, kvs), all_gather(v, -1, kvs)
+        k, v = to_local_region(k, hs), to_local_region(v, hs)
     h0 = hs.offset // cfg.head_dim
     if hs.split and (whole_q or hs.size % cfg.head_dim):
         q, h0 = to_local_region(all_gather(q, -1, hs), hs), 0
     q = q.reshape(b, s, -1, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    k = k.reshape(b, x_kv.shape[1], -1, cfg.head_dim)
+    v = v.reshape(b, x_kv.shape[1], -1, cfg.head_dim)
     return q, k, v, h0
 
 
@@ -188,16 +212,69 @@ def _out_proj(p: dict, o: torch.Tensor, hs: Shard) -> torch.Tensor:
     return all_reduce_sum(o @ p["wo"], hs)
 
 
-def _seq_shard(ctx: BlockCtx, window: Optional[int], local_len: int) -> Shard:
-    """This rank's slice of the decode cache's sequence."""
-    if ctx.seq_len is None:
-        return Shard(0, local_len, local_len)
+def _cache_shards(cfg: ModelConfig, ctx: BlockCtx, window: Optional[int],
+                  local_len: int) -> Tuple[Shard, Shard]:
+    """This rank's slice of the decode cache's sequence and of its KV heads,
+    as the cell's cache specs split them: the sequence on ``kv_seq`` where
+    the mesh divides its length, else the KV heads on ``kv_heads`` where it
+    divides them (``launch/specs.cache_pspecs``)."""
+    kvh = cfg.num_kv_heads
+    if ctx.seq_len is None or not is_device_mesh(active_mesh()):
+        return Shard(0, local_len, local_len), Shard(0, kvh, kvh)
     total = ctx.seq_len if window is None else min(ctx.seq_len, window)
-    ss = shard_of("kv_seq", total)
+    seq_e, kv_e = logical_pspec(("kv_seq", "kv_heads"), (total, kvh))
+    ss, kh = entry_shard(seq_e, total), entry_shard(kv_e, kvh)
     if ss.size != local_len:
         raise ValueError(f"decode: a cache of {local_len} positions is not this rank's "
                          f"slice {ss} of {total}")
-    return ss
+    return ss, kh
+
+
+def _kv_head_of(cfg: ModelConfig, h: int) -> int:
+    """The KV head global query head ``h`` reads (``make_qh_to_kv_map``'s)."""
+    group = max(1, cfg.num_heads // cfg.num_kv_heads)
+    return min(h // group, cfg.num_kv_heads - 1) if h < cfg.num_heads else 0
+
+
+def _decode_heads(cfg: ModelConfig, hs: Shard, kh: Shard) -> Tuple[list, bool]:
+    """(the global query heads this rank attends in a decode step, whether
+    they are its own heads of ``hs``).  With the KV heads split (``kh``):
+    the heads whose KV head the rank holds, which need not be its own (a
+    padded-head map crosses shards); else its own heads where its ``hs``
+    columns are whole heads, else every head."""
+    d = cfg.head_dim
+    own = (list(range(hs.offset // d, (hs.offset + hs.size) // d)) if hs.size % d == 0
+           else None)
+    if kh.split:
+        sel = [h for h in range(cfg.padded_heads)
+               if kh.offset <= _kv_head_of(cfg, h) < kh.offset + kh.size]
+    else:
+        sel = own if own is not None else list(range(cfg.padded_heads))
+    return sel, sel == own
+
+
+def _decode_kv_heads(cfg: ModelConfig, q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                     k_pos: torch.Tensor, cur_pos: torch.Tensor, window: Optional[int],
+                     kh: Shard, sel: list, aligned: bool) -> torch.Tensor:
+    """One token's attention over this rank's KV heads ``kh`` of a cache
+    (``kc`` / ``vc`` [B,S,kh.size,D], ``k_pos`` [B,S]) for the query heads
+    ``sel`` (``q``: those heads where ``aligned``, else every head).  Returns
+    ``sel``'s outputs where ``aligned`` (the rank's own heads), else every
+    head's: each rank writes the heads it attended into zeros and one sum
+    over ``kh``'s axis combines them (one rank contributes each head)."""
+    b = q.shape[0]
+    if not aligned:
+        q = q[:, :, sel]
+    local = [_kv_head_of(cfg, h) - kh.offset for h in sel]
+    if local != list(range(kc.shape[2])):      # not one KV head a query head, in order
+        local = torch.tensor(local, dtype=torch.long, device=q.device)
+        kc, vc = expand_kv(kc, local), expand_kv(vc, local)
+    o = decode_attention(q, kc, vc, k_pos, cur_pos, window)
+    if aligned:
+        return o
+    out = o.new_zeros((b, 1, cfg.padded_heads, cfg.head_dim))
+    out[:, :, sel] = o
+    return all_reduce_sum(out, kh)
 
 
 def _rope_q_positions(positions: torch.Tensor) -> torch.Tensor:
@@ -215,31 +292,41 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
         return make_qh_to_kv_map(cfg.num_heads, cfg.num_kv_heads,
                                  cfg.padded_heads, x.device, h0, count)
 
-    if cross:
-        # keys and values from the encoder memory: no RoPE, no mask, no
-        # cache write (the decode reads the ones _fill_cross_kv stored)
-        q = x @ p["wq"]
-        if cfg.qkv_bias:
-            q = q + p["bq"]
-        q = q.reshape(b, s, cfg.padded_heads, cfg.head_dim)
-        km = (ctx.memory @ p["wk"]).reshape(b, -1, cfg.num_kv_heads, cfg.head_dim)
-        vm = (ctx.memory @ p["wv"]).reshape(b, -1, cfg.num_kv_heads, cfg.head_dim)
-        if ctx.mode == "prefill":
-            o = flash_attention(q.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2),
-                                causal=False, num_heads=cfg.num_heads).transpose(1, 2)
-        else:
-            spec = AttnSpec(causal=False, impl="auto", chunk_size=cfg.attn_chunk)
-            qh_map = kv_map()
-            o = attention(q, expand_kv(km, qh_map), expand_kv(vm, qh_map), spec,
-                          q_pos, ctx.memory_positions)
-        return o.reshape(b, s, -1) @ p["wo"], None
-
-    kernel_route = ctx.mode == "prefill" and ctx.default_positions
     hs = shard_of("heads", cfg.padded_heads * cfg.head_dim)
     kvs = shard_of("kv_heads", cfg.num_kv_heads * cfg.head_dim)
-    # the kernel's prefill and training attend this rank's own heads
-    own_heads = kernel_route or ctx.mode == "train"
-    q, k, v, h0 = _qkv(cfg, p, x, hs, kvs, whole_q=not own_heads)
+    if cross:
+        # keys and values from the encoder memory (gathered to whole KV
+        # heads where the mesh splits them), q on this rank's own heads: no
+        # RoPE, no mask, no cache write (the decode reads the ones
+        # _fill_cross_kv stored)
+        q, km, vm, h0 = _qkv(cfg, p, x, hs, kvs, whole_q=False, mem=ctx.memory)
+        if ctx.mode == "prefill":
+            o = flash_attention(q.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2),
+                                causal=False, num_heads=cfg.num_heads,
+                                head_offset=h0).transpose(1, 2)
+        else:
+            spec = AttnSpec(causal=False, impl="auto", chunk_size=cfg.attn_chunk)
+            qh_map = kv_map(h0, q.shape[2])
+            o = attention(q, expand_kv(km, qh_map), expand_kv(vm, qh_map), spec,
+                          q_pos, ctx.memory_positions)
+        return _out_proj(p, o.reshape(b, s, -1), hs), None
+
+    kernel_route = ctx.mode == "prefill" and ctx.default_positions
+    contiguous_decode = (ctx.mode == "decode" and ctx.cache is not None
+                         and "k_pool" not in ctx.cache)
+    kh = None
+    if contiguous_decode:
+        ss, kh = _cache_shards(cfg, ctx, seg.window, ctx.cache["k"].shape[1])
+    if kh is not None and kh.split:
+        # a decode cache split by KV heads: this rank's k and v are its own
+        # KV heads (kv_heads splits wk / wv the same way), q its own heads
+        # where they are the ones that read those KV heads, else every head
+        sel, aligned = _decode_heads(cfg, hs, kh)
+        q, k, v, h0 = _qkv(cfg, p, x, hs, kvs, whole_q=not aligned, gather_kv=False)
+    else:
+        # the kernel's prefill and training attend this rank's own heads
+        own_heads = kernel_route or ctx.mode == "train"
+        q, k, v, h0 = _qkv(cfg, p, x, hs, kvs, whole_q=not own_heads)
     q = apply_rope(q, ctx.positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, ctx.positions, cfg.rope_theta, cfg.mrope_sections)
     window = seg.window
@@ -279,9 +366,13 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
                             window=window)
     else:  # decode: one token against a contiguous cache
         assert s == 1
-        ss = _seq_shard(ctx, window, ctx.cache["k"].shape[1])
-        new_cache = _write_decode_cache(ctx.cache, k, v, ctx.cur_pos, window, by_index, ss)
+        new_cache = _write_decode_cache(ctx.cache, k, v, ctx.cur_pos, window, by_index, ss,
+                                        ctx.fill)
         kc, vc = new_cache["k"], new_cache["v"]
+        if kh.split:
+            o = _decode_kv_heads(cfg, q, kc, vc, new_cache["pos"], ctx.cur_pos, window, kh,
+                                 sel, aligned)
+            return _out_proj(p, o.reshape(b, s, -1), hs), new_cache
         if cfg.decode_kv_expand or cfg.padded_heads != cfg.num_heads:
             qh_map = kv_map()
             kc, vc = expand_kv(kc, qh_map), expand_kv(vc, qh_map)
@@ -294,18 +385,25 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
 
 def cross_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict) -> torch.Tensor:
     """Cross-attention of one decode token over the memory KV that
-    ``_fill_cross_kv`` cached (``xk`` / ``xv`` [B, Sm, KVH, D]), every
-    entry valid (the reference's ``_xdecoder_decode``) -> [B, 1, d]."""
+    ``_fill_cross_kv`` cached (``xk`` / ``xv`` [B, Sm, KVH, D], this rank's
+    KV heads where the mesh splits them), every entry valid (the
+    reference's ``_xdecoder_decode``) -> [B, 1, d].  Over the mesh the rank
+    attends the query heads that read its KV heads (its own heads where
+    they are those), and ``wo``'s rows are summed."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.padded_heads, cfg.head_dim)
-    qh_map = make_qh_to_kv_map(cfg.num_heads, cfg.num_kv_heads, cfg.padded_heads,
-                               x.device)
-    xk, xv = expand_kv(cache["xk"], qh_map), expand_kv(cache["xv"], qh_map)
-    sm = xk.shape[1]
+    hs = shard_of("heads", cfg.padded_heads * cfg.head_dim)
+    kh = shard_of("kv_heads", cfg.num_kv_heads)
+    sel, aligned = _decode_heads(cfg, hs, kh)
+    q = x @ p["wq"]
+    if not aligned:
+        q = all_gather(q, -1, hs)
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    sm = cache["xk"].shape[1]
     mem_pos = torch.arange(sm, dtype=torch.int32, device=x.device).expand(b, sm)
     big = torch.full((b,), 2**30, dtype=torch.int32, device=x.device)
-    o = decode_attention(q, xk, xv, mem_pos, big, None)
-    return o.reshape(b, s, -1) @ p["wo"]
+    o = _decode_kv_heads(cfg, q, cache["xk"], cache["xv"], mem_pos, big, None, kh, sel,
+                         aligned)
+    return _out_proj(p, o.reshape(b, s, -1), hs)
 
 
 def _write_prefill_cache(cache, k, v, positions, window, by_index=False):
@@ -367,15 +465,16 @@ def _gather_paged(cache):
 
 
 def _write_decode_cache(cache, k, v, cur_pos, window, by_index=False,
-                        seq: Optional[Shard] = None):
+                        seq: Optional[Shard] = None, fill: Optional[torch.Tensor] = None):
     """Write one token into a contiguous (possibly ring) cache, in place.
-    With ``by_index`` (M-RoPE) it goes to the first free slot.  With the
-    cache split by sequence (``seq``), the slot is counted in the whole
-    cache and only the rank whose slice holds it writes."""
+    With ``by_index`` (M-RoPE) it goes to the first free slot (``fill``
+    where given: counted over the whole cache).  With the cache split by
+    sequence (``seq``), the slot is counted in the whole cache and only the
+    rank whose slice holds it writes."""
     S_cache = cache["k"].shape[1]
     b = k.shape[0]
     if by_index:
-        slots = (cache["pos"] >= 0).sum(dim=1)
+        slots = (cache["pos"] >= 0).sum(dim=1) if fill is None else fill
     else:
         total = S_cache if seq is None else seq.total
         slots = (cur_pos % total) if window is not None else cur_pos
@@ -394,6 +493,16 @@ def _write_decode_cache(cache, k, v, cur_pos, window, by_index=False,
         cache[name][bi, local] = torch.where(keep, t.to(cache[name].dtype),
                                              cache[name][bi, local])
     return cache
+
+
+def first_free_slot(cfg: ModelConfig, seg: Segment, pos: torch.Tensor,
+                    ctx: BlockCtx) -> torch.Tensor:
+    """[B]: the first free slot of an M-RoPE model's contiguous cache, whose
+    entries fill its slots in order; ``pos``: one layer's [B, S] (this
+    rank's slice where the mesh splits the cache by sequence, the counts
+    then summed over the slices)."""
+    ss, _ = _cache_shards(cfg, ctx, seg.window, pos.shape[1])
+    return all_reduce_sum((pos >= 0).sum(dim=1), ss)
 
 
 def attn_cache_init(cfg: ModelConfig, seg: Segment, batch: int, seq_len: int,
@@ -442,15 +551,15 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- Mamba
 
 
-def _ssm_shard(cfg: ModelConfig) -> Shard:
-    """This rank's ``ssm_inner`` channels of the Mamba mixer.  ``in_proj``
-    splits its ``2·d_inner`` columns by the same rule: a split of the one
-    without the other (``d_inner`` not divisible, ``2·d_inner`` divisible)
-    is refused."""
-    ss = shard_of("ssm_inner", cfg.d_inner)
-    if shard_of("ssm_inner", 2 * cfg.d_inner).split != ss.split:
-        raise NotImplementedError(f"the Mamba mixer of {cfg.name}: d_inner {cfg.d_inner} "
-                                  f"does not split evenly where 2·d_inner does")
+def _inner_shard(cfg: ModelConfig, d_inner: int) -> Shard:
+    """This rank's ``ssm_inner`` channels of a Mamba mixer or an mLSTM block
+    of ``d_inner`` channels.  ``in_proj`` / ``up_proj`` split their
+    ``2·d_inner`` columns by the same rule: a split of the one without the
+    other (``d_inner`` not divisible, ``2·d_inner`` divisible) is refused."""
+    ss = shard_of("ssm_inner", d_inner)
+    if shard_of("ssm_inner", 2 * d_inner).split != ss.split:
+        raise NotImplementedError(f"{cfg.name}: d_inner {d_inner} does not split evenly "
+                                  f"where 2·d_inner does")
     return ss
 
 
@@ -526,7 +635,7 @@ def block_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
         normed = rms_norm(x, p["ln1"], cfg.norm_eps)
         h_attn, new_attn_cache = attn_apply(cfg, seg, p["attn"], normed, ctx)
         mc = ctx.cache if ctx.cache is not None else {}
-        ss = _ssm_shard(cfg)
+        ss = _inner_shard(cfg, cfg.d_inner)
         if ctx.mode == "decode":
             h_mamba, (ssm_s, conv_s) = mamba_decode(
                 p["mamba"], normed, mc.get("ssm"), mc.get("conv"), cfg.dt_rank_actual, ss)
@@ -553,10 +662,15 @@ def block_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
         if seg.kind == "mlstm":
             x, (state, conv_s) = mlstm_block_forward(
                 p, x, cfg.num_heads, state=state, conv_state=mc.get("conv"),
-                chunk_size=cfg.mlstm_chunk, decode=ctx.mode == "decode")
+                chunk_size=cfg.mlstm_chunk, decode=ctx.mode == "decode",
+                shard=_inner_shard(cfg, int(cfg.mlstm_proj_factor * cfg.d_model)))
         else:
+            # the FFN on ffn; the conv state on ssm_inner over d_model, as
+            # the cache's spec splits it (the conv itself runs whole)
             x, (state, conv_s) = slstm_block_forward(
-                p, x, cfg.num_heads, state=state, conv_state=mc.get("conv"))
+                p, x, cfg.num_heads, state=state, conv_state=mc.get("conv"),
+                ffn=shard_of("ffn", slstm_d_ff(cfg.d_model)),
+                conv=shard_of("ssm_inner", cfg.d_model))
         if ctx.mode == "train":
             return x, None, aux
         new = dict(zip(names, state), conv=conv_s)

@@ -167,21 +167,23 @@ def mamba_param_specs(d_model: int, d_inner: int, ssm_state: int,
     }
 
 
-def _in_proj(p: dict, x: torch.Tensor, shard: Optional[Shard]):
-    """x [.., d_model] -> (x_in, z) [.., d_inner] at this rank's channels.
+def split_in_proj(x: torch.Tensor, w: torch.Tensor, shard: Optional[Shard]):
+    """x [.., d_model] @ w [d_model, 2·d_inner] -> its two halves [..,
+    d_inner] at this rank's channels (Mamba's ``in_proj``: ``x_in``, ``z``;
+    the mLSTM's ``up_proj``: ``u``, ``z``).
 
-    Split over ``ssm_inner``, ``in_proj`` [d_model, 2·d_inner] is cut into
-    contiguous column shards, which do not pair ``x_in`` with ``z`` (over 2
-    ranks, rank 0 holds all of ``x_in`` and rank 1 all of ``z``).  So the
-    ranks' products are gathered whole and each rank takes its own channels
-    of both halves; ``x`` enters the column shard through
+    Split over ``ssm_inner``, ``w`` is cut into contiguous column shards,
+    which do not pair the first half with the second (over 2 ranks, rank 0
+    holds all of the first and rank 1 all of the second).  So the ranks'
+    products are gathered whole and each rank takes its own channels of
+    both halves; ``x`` enters the column shard through
     ``to_local_region``, as the gathered product enters the rank's
     channels."""
     if shard is None or not shard.split:
-        return torch.chunk(x @ p["in_proj"], 2, dim=-1)
+        return torch.chunk(x @ w, 2, dim=-1)
     cols = dataclasses.replace(shard, offset=2 * shard.offset, size=2 * shard.size,
                                total=2 * shard.total)
-    xz = to_local_region(all_gather(to_local_region(x, shard) @ p["in_proj"], -1, cols), shard)
+    xz = to_local_region(all_gather(to_local_region(x, shard) @ w, -1, cols), shard)
     z0 = shard.total + shard.offset
     return xz[..., shard.slice], xz[..., z0:z0 + shard.size]
 
@@ -213,7 +215,7 @@ def mamba_forward(p: dict, x: torch.Tensor, ssm_state, conv_state,
     Returns (y [b,s,d_model], (ssm_state, conv_state)), the states this
     rank's channels.
     """
-    x_in, z = _in_proj(p, x, shard)
+    x_in, z = split_in_proj(x, p["in_proj"], shard)
     x_c, conv_state = causal_conv1d(x_in, p["conv_w"], p["conv_b"], conv_state)
     x_c = F.silu(x_c)
     dt, B, C, A, D = _project(p, x_c, dt_rank, shard)
@@ -226,7 +228,7 @@ def mamba_decode(p: dict, x: torch.Tensor, ssm_state, conv_state, dt_rank: int,
                  shard: Optional[Shard] = None):
     """One-token mamba step.  x: [b,1,d_model]; ``shard`` as
     :func:`mamba_forward`'s."""
-    x_in, z = _in_proj(p, x[:, 0], shard)
+    x_in, z = split_in_proj(x[:, 0], p["in_proj"], shard)
     # conv over (state ++ x): one output step
     xp = torch.cat([conv_state.to(x.dtype), x_in[:, None]], dim=1)   # [b,K,d]
     x_c = torch.einsum("bkd,kd->bd", xp.float(), p["conv_w"].float()) + p["conv_b"].float()

@@ -21,9 +21,11 @@ the params are each rank's shards and the reference's sharding constraints
 become explicit collectives, differentiable (``distributed/
 tensor_parallel.py``): the embedding and the LM head split on ``vocab``
 (the training loss reads this rank's columns, ``train/loss.py``), attention
-on ``heads`` / ``kv_heads`` (and the decode cache on ``kv_seq``), the MLP on
-``ffn``; a rematerialised layer recomputes under the mesh its forward ran
-under.  Without a mesh every collective is the identity.  Caches are
+on ``heads`` / ``kv_heads`` (and the decode cache on ``kv_seq``, or on
+``kv_heads`` where the mesh does not divide its length; the encoder-decoder's
+memory KV on ``kv_heads``), the MLP on ``ffn``, the Mamba mixer and the
+mLSTM on ``ssm_inner``; a rematerialised layer recomputes under the mesh its
+forward ran under.  Without a mesh every collective is the identity.  Caches are
 updated in place; a function that takes a cache returns it (with any new
 entries, such as the paged ``len``).
 A model with meta tokens (hymba) runs a learned prefix of
@@ -55,7 +57,7 @@ from ..configs.base import ModelConfig, Segment
 from ..distributed.sharding import active_mesh, active_rules, is_device_mesh, use_mesh
 from ..distributed.tensor_parallel import all_gather, all_reduce_sum, shard_of, to_local_region
 from ..interop import tree_map
-from .blocks import BlockCtx, block_apply, block_cache_init, block_param_specs
+from .blocks import BlockCtx, block_apply, block_cache_init, block_param_specs, first_free_slot
 from .common import (ParamSpec, init_param_tree, logical_axes_tree, normal_init, ones_init,
                      stack_specs)
 from .layers import rms_norm
@@ -358,17 +360,25 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: list
 
 def _fill_cross_kv(cfg: ModelConfig, params: dict, cache: list, memory) -> list:
     """Each cross-attention layer's memory KV -> the cache's ``xk`` / ``xv``
-    (new tensors of the memory's length, as the JAX package stores them)."""
+    (new tensors of the memory's length, as the JAX package stores them).
+    Under a mesh each rank computes its ``wk`` / ``wv`` columns: they are its
+    KV heads of the cache where the mesh splits the KV heads; where it
+    splits only their columns (a shard cuts a head), they are gathered to
+    the whole cache."""
     b, sm, _ = memory.shape
+    kvs = shard_of("kv_heads", cfg.num_kv_heads * cfg.head_dim)
+    kh = shard_of("kv_heads", cfg.num_kv_heads)
     out = []
     for i, seg in enumerate(cfg.decoder_plan()):
         c = dict(cache[i])
         if seg.kind == "xdecoder":
             p = params["segments"][i]["xattn"]
             for name, w in (("xk", p["wk"]), ("xv", p["wv"])):
-                c[name] = torch.stack([
-                    (memory @ w[l]).reshape(b, sm, cfg.num_kv_heads, cfg.head_dim)
-                    for l in range(seg.count)]).to(c[name].dtype)
+                kv = [memory @ w[l] for l in range(seg.count)]
+                if not kh.split:
+                    kv = [all_gather(t, -1, kvs) for t in kv]
+                c[name] = torch.stack([t.reshape(b, sm, kh.size, cfg.head_dim)
+                                       for t in kv]).to(c[name].dtype)
         out.append(c)
     return out
 
@@ -395,6 +405,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list,
     else:
         positions = cur_pos[:, None]
     ctx = BlockCtx(mode="decode", positions=positions, cur_pos=cur_pos, seq_len=seq_len)
+    if cfg.mrope_sections is not None and "pos" in cache[0]:
+        # the first free slot, which every layer's write takes
+        seg = cfg.decoder_plan()[0]
+        ctx = dataclasses.replace(ctx, fill=first_free_slot(cfg, seg, cache[0]["pos"][0], ctx))
     new_caches = []
     for i, seg in enumerate(cfg.decoder_plan()):
         x, nc, _ = _run_segment(cfg, seg, params["segments"][i], x, ctx, cache[i])

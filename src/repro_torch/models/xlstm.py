@@ -20,18 +20,30 @@ one tensor allocated before the loop, never a list that is concatenated at
 the end.  The mLSTM state ``(C, n, m)`` and the sLSTM state ``(c, n, m,
 h)`` are tuples here, as in the JAX package; ``models/blocks.py`` keeps
 them in a layer's cache under one name each (``C``, ``n``, ...).
+
+Tensor-parallel (under an active ``DeviceMesh``, ``distributed/
+tensor_parallel.py``): the mLSTM block runs its channels on ``ssm_inner``
+(a ``Shard``): ``up_proj``'s columns, the conv, the rows of ``wq wk wv
+wi wf``, ``out_norm`` and the rows of ``down_proj`` are the rank's; the
+five row-parallel products are summed in one collective, and the cell, its
+state and the heads run whole on every rank.  The sLSTM block runs whole
+but for its gated FFN, split on ``ffn`` as ``blocks.mlp_apply``'s; its
+conv state, which the cache splits over ``ssm_inner`` where ``d_model``
+divides, is gathered before the conv and handed back as the rank's slice.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.tensor_parallel import Shard, all_gather, all_reduce_sum, to_local_region
 from .common import ParamSpec, fan_in_init, normal_init, ones_init, zeros_init
-from .layers import rms_norm
-from .ssm import causal_conv1d
+from .layers import rms_norm, swiglu
+from .ssm import causal_conv1d, split_in_proj
 
 LOG_EPS = -30.0
 
@@ -206,32 +218,61 @@ def mlstm_block_specs(d_model: int, num_heads: int, proj_factor: float = 2.0,
     }
 
 
+def _row_parallel(shard: Optional[Shard], *products) -> list:
+    """Each ``(a, w)`` product's ``a @ w``; over ``shard``'s channels the
+    products are partial sums, summed in one collective."""
+    out = [a @ w for a, w in products]
+    if shard is None or not shard.split:
+        return out
+    widths = [t.shape[-1] for t in out]
+    return list(torch.split(all_reduce_sum(torch.cat(out, dim=-1), shard), widths, dim=-1))
+
+
+def _out_norm(y: torch.Tensor, scale: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    """``rms_norm`` over the whole (replicated) ``y``, at this rank's
+    channels of ``shard`` (``scale`` its slice): the statistic reads every
+    channel, the same elementwise arithmetic follows."""
+    if shard is None or not shard.split:
+        return rms_norm(y, scale)
+    yf = y.float()
+    normed = to_local_region(yf * torch.rsqrt((yf * yf).mean(dim=-1, keepdim=True) + 1e-6),
+                             shard)
+    return (normed[..., shard.slice] * scale.float()).to(y.dtype)
+
+
 def mlstm_block_forward(p: dict, x: torch.Tensor, num_heads: int,
                         state=None, conv_state=None, chunk_size: int = 64,
-                        decode: bool = False):
-    """Pre-norm residual mLSTM block.  x: [b,s,d_model]."""
+                        decode: bool = False, shard: Optional[Shard] = None):
+    """Pre-norm residual mLSTM block.  x: [b,s,d_model]; ``shard``: this
+    rank's ``ssm_inner`` channels (None: whole), the conv state the rank's
+    channels."""
     b, s, _ = x.shape
     h = rms_norm(x, p["norm"])
-    u, z = (h @ p["up_proj"]).chunk(2, dim=-1)            # [b,s,d_inner] each
+    u, z = split_in_proj(h, p["up_proj"], shard)           # [b,s,d_inner] each
     u_c, conv_state = causal_conv1d(u, p["conv_w"], p["conv_b"], conv_state)
     u_act = F.silu(u_c)
-    q = (u_act @ p["wq"]).reshape(b, s, num_heads, -1)
-    k = (u_act @ p["wk"]).reshape(b, s, num_heads, -1)
-    v = (u @ p["wv"]).reshape(b, s, num_heads, -1)
-    ig = u_act @ p["wi"] + p["bi"]                        # [b,s,h]
-    fg = u_act @ p["wf"] + p["bf"]
+    q, k, v, ig, fg = _row_parallel(shard, (u_act, p["wq"]), (u_act, p["wk"]), (u, p["wv"]),
+                                    (u_act, p["wi"]), (u_act, p["wf"]))
+    q, k, v = (t.reshape(b, s, num_heads, -1) for t in (q, k, v))
+    ig, fg = ig + p["bi"], fg + p["bf"]                   # [b,s,h]
     if decode:
         y, state = mlstm_decode(q, k, v, ig, fg, state)
     else:
         y, state = mlstm_chunked(q, k, v, ig, fg, state, chunk_size=chunk_size)
-    y = rms_norm(y.reshape(b, s, -1), p["out_norm"]) * F.silu(z)
-    return x + y @ p["down_proj"], (state, conv_state)
+    y = _out_norm(y.reshape(b, s, -1), p["out_norm"], shard) * F.silu(z)
+    out = y @ p["down_proj"]
+    return x + (out if shard is None else all_reduce_sum(out, shard)), (state, conv_state)
+
+
+def slstm_d_ff(d_model: int, ff_factor: float = 4.0 / 3.0) -> int:
+    """The sLSTM block's gated FFN width."""
+    return int(ff_factor * d_model)
 
 
 def slstm_block_specs(d_model: int, num_heads: int, ff_factor: float = 4.0 / 3.0,
                       d_conv: int = 4) -> dict:
     dh = d_model // num_heads
-    d_ff = int(ff_factor * d_model)
+    d_ff = slstm_d_ff(d_model, ff_factor)
 
     def r_init(gen, shape, dtype):
         return normal_init(gen, shape, dtype, 1.0 / math.sqrt(shape[-1]))
@@ -263,17 +304,28 @@ def slstm_block_specs(d_model: int, num_heads: int, ff_factor: float = 4.0 / 3.0
 
 
 def slstm_block_forward(p: dict, x: torch.Tensor, num_heads: int,
-                        state=None, conv_state=None):
-    """Pre-norm sLSTM block + gated FFN.  x: [b,s,d_model]."""
+                        state=None, conv_state=None, ffn: Optional[Shard] = None,
+                        conv: Optional[Shard] = None):
+    """Pre-norm sLSTM block + gated FFN.  x: [b,s,d_model].  ``ffn``: this
+    rank's shard of the FFN's ``d_ff`` (None: whole); ``conv``: the
+    channels of ``d_model`` this rank's conv state holds (None: whole),
+    gathered for the conv, which runs whole, and handed back sliced."""
     b, s, d = x.shape
     h = rms_norm(x, p["norm"])
+    split_conv = conv is not None and conv.split
+    if split_conv and conv_state is not None:
+        conv_state = all_gather(conv_state, -1, conv)
     h_c, conv_state = causal_conv1d(h, p["conv_w"], p["conv_b"], conv_state)
+    if split_conv:
+        conv_state = conv_state[..., conv.slice]
     zifo = F.silu(h_c) @ p["w_zifo"] + p["b_zifo"]
     shp = (b, s, num_heads, d // num_heads)
     xz, xi, xf, xo = (a.reshape(shp) for a in zifo.chunk(4, dim=-1))
     y, state = slstm_scan(xz, xi, xf, xo, p["r_z"], p["r_i"], p["r_f"], p["r_o"], state)
     x = x + rms_norm(y.reshape(b, s, d), p["out_norm"])
-    # gated FFN sub-block (pf = 4/3)
+    # gated FFN sub-block (pf = 4/3): split on ffn, the partial products summed
     f = rms_norm(x, p["ff_norm"])
-    f = (F.silu(f @ p["w_gate"]) * (f @ p["w_up"])) @ p["w_down"]
-    return x + f, (state, conv_state)
+    if ffn is None or not ffn.split:
+        return x + swiglu(f, p["w_gate"], p["w_up"], p["w_down"]), (state, conv_state)
+    f = swiglu(to_local_region(f, ffn), p["w_gate"], p["w_up"], p["w_down"])
+    return x + all_reduce_sum(f, ffn), (state, conv_state)

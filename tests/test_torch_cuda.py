@@ -642,6 +642,9 @@ def test_flash_attention_unaligned_view_takes_the_generic_kernel(cuda, which):
     (1, 16, 9, 3, 130, 130, 64, True, None, 4),     # smollm-135m over 4: rank 3 padded only
     (2, 8, 6, 2, 140, 140, 64, True, 16, 4),        # a KV group over 2 ranks, window; rank 3 padded
     (2, 8, 8, 4, 100, 170, 128, False, None, 2),    # Sq != Sk, no mask
+    (4, 16, 16, 16, 120, 120, 64, False, None, 2),  # seamless's encoder over 2: no mask
+    (4, 16, 16, 16, 32, 120, 64, False, None, 2),   # its cross-attention: 32 x 120, no mask
+    (1, 32, 28, 4, 150, 150, 128, True, None, 2),   # qwen2-vl-7b over 2: 2 of 4 KV heads
 ])
 def test_flash_attention_head_offset_is_the_full_launch(cuda, variant, dtype, b, h, nh, kvh,
                                                         sq, sk, d, causal, window, ranks):

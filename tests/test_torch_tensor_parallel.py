@@ -26,17 +26,15 @@ tokens equal.
 
 Also here: ``flash_attention``'s ``head_offset`` (the plain version) —
 each shard of heads bitwise those heads of the call over every head,
-among them a shard of padded heads only; the cells of the families not yet
-ported (xLSTM, M-RoPE, the encoder-decoder; the MoE models and hymba run in
-``test_torch_tp_zoo.py``) refusing ``model`` > 1 with their ``ROADMAP.md``
-item, their train cells among them, and a decode cache split by KV heads
-with its own; and the tensor-parallel helpers the identity without a
-mesh.
+among them a shard of padded heads only; and the tensor-parallel helpers
+the identity without a mesh.  The other architectures' cells run in
+``test_torch_tp_zoo.py`` (the MoE models and hymba) and
+``test_torch_tp_rest.py`` (xLSTM, qwen2-vl, seamless, and a decode cache
+split by KV heads).
 """
 
 import math
 import os
-import re
 import subprocess
 import sys
 import time
@@ -373,80 +371,7 @@ def test_flash_head_offset_shards_are_bitwise_the_full_call(dtype, b, h, nh, kvh
     assert (full[:, nh:] == 0).all() and full[:, :nh].abs().sum() > 0
 
 
-# -------------------------------------- refusals, helpers without a mesh
-
-
-class StandInMesh:
-    """A (1, 2) ``("data", "model")`` DeviceMesh's names and shape: the cells
-    refuse before any collective, so no process group is needed."""
-
-    mesh_dim_names = ("data", "model")
-    shape = (1, 2)
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("xlstm-1.3b", "Queue 1 item 2 (d)"), ("qwen2-vl-7b", "Queue 1 item 2 (e)"),
-    ("seamless-m4t-medium", "Queue 1 item 2 (f)"),
-])
-@pytest.mark.parametrize("kind", ["prefill", "decode"])
-def test_families_not_ported_refuse_model_over_one(arch, item, kind):
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.distributed.sharding import use_mesh
-    from repro_torch.launch import specs as SP
-    from repro_torch.launch.mesh import rules_for
-
-    cfg = get_smoke_config(arch)
-    mesh = StandInMesh()
-    with use_mesh(mesh, rules_for(kind, cfg)):
-        cell = SP.build_cell(cfg, ShapeConfig("c", SEQ, B, kind), mesh)
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(cfg.name) + ".*" + re.escape(f"ROADMAP.md, {item}")):
-        cell.fn(*cell.args)
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("xlstm-1.3b", "Queue 1 item 2 (d)"), ("qwen2-vl-7b", "Queue 1 item 2 (e)"),
-    ("seamless-m4t-medium", "Queue 1 item 2 (f)"),
-])
-def test_train_cell_refuses_model_over_one(arch, item):
-    """The train cell of each family not ported over ``model`` > 1 refuses,
-    naming its own ``ROADMAP.md`` item (the dense decoders' runs,
-    ``tests/test_torch_tp_train.py``; the MoE models' and hymba's,
-    ``tests/test_torch_tp_zoo.py``)."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.distributed.sharding import use_mesh
-    from repro_torch.launch import specs as SP
-    from repro_torch.launch.mesh import rules_for
-
-    cfg = get_smoke_config(arch)
-    mesh = StandInMesh()
-    with use_mesh(mesh, rules_for("train", cfg)):
-        cell = SP.build_cell(cfg, ShapeConfig("t", SEQ, B, "train"), mesh)
-    with pytest.raises(NotImplementedError,
-                       match="train cell of " + re.escape(cfg.name) + ".*"
-                       + re.escape(f"ROADMAP.md, {item}")):
-        cell.fn(*cell.args)
-
-
-@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x7b"])
-def test_decode_cache_split_by_kv_heads_refuses(arch):
-    """A decode cache whose length the mesh does not divide is split by KV
-    heads instead of by sequence: refused, naming its ``ROADMAP.md`` item."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.distributed.sharding import use_mesh
-    from repro_torch.launch import specs as SP
-    from repro_torch.launch.mesh import rules_for
-
-    cfg = get_smoke_config(arch).replace(sliding_window=None)
-    mesh = StandInMesh()
-    with use_mesh(mesh, rules_for("decode", cfg)):
-        cell = SP.build_cell(cfg, ShapeConfig("d", SEQ - 1, B, "decode"), mesh)
-    with pytest.raises(NotImplementedError,
-                       match="split by KV heads.*" + re.escape("ROADMAP.md, Queue 1 item 2 (g)")):
-        cell.fn(*cell.args)
+# ------------------------------------------------ helpers without a mesh
 
 
 def test_helpers_are_the_identity_without_a_mesh():
