@@ -220,9 +220,13 @@ Phases, each printing one JSON line:
 11. distributed  the distribution slice under NCCL at world size 1 (a
             file store under build/, a (1, 1) ("data", "model")
             DeviceMesh; no gloo, no fallback), printing the NCCL version:
-            (a) the meta-device dry run of all 33 cells x 2 production
-            meshes, every record ok, per-device GB and how many fit the
-            card; (b) the data-parallel ZeRO-1 train cell, full-width
+            (a) the dry run of all 33 cells x 2 production meshes, rank
+            0's program executed on meta under a fake process group of the
+            mesh (``DIST_DRY_*``: in niced children started right after
+            phase 2, collected here), every record ok, each record's
+            per-device peak bytes, flops, collective bytes, ``fits`` and
+            meta seconds, the sweep's seconds and how many fit the card by
+            their peak; (b) the data-parallel ZeRO-1 train cell, full-width
             smollm-135m from phase 8's weights and batches (4 x 2048, 3
             steps), params, m and v bitwise ``train_step``'s after every
             step, step ms in turns with it; (c) ``compressed_all_reduce``
@@ -234,7 +238,11 @@ Phases, each printing one JSON line:
             ``restore_train_state_elastic`` onto the mesh, one batched
             read, local shards bitwise equal; (f) qwen2-1.5b's prefill cell
             at 4 x 1024, logits bitwise ``T.prefill``'s, its 28
-            flash_attention launches all hopper.
+            flash_attention launches all hopper.  The card's peak of (b)'s
+            last cell call and of (f)'s (after a garbage collection, the
+            rise of ``max_memory_allocated`` plus the arguments) within 10 %
+            of the dry run's meta run of the same cell at (1, 1), the
+            ratio printed either way.
 12. tensor_parallel  tensor parallelism over ``model`` (``TP_*``): (a)
             flash_attention on one rank's heads (``head_offset``), bf16 at
             full width: llama3-8b's 32 heads over 4 ranks (q [1,8,4096,128],
@@ -280,6 +288,9 @@ Phases, each printing one JSON line:
             just before the steps and read just after: no kernel of the
             port launches in training, flash_attention (no backward kernel)
             included.  (b)'s times are gloo's, staged through the host.
+            The card's peak of the last cell call, in (a) and on each rank
+            of (b), within 10 % of the dry run's meta run of the cell at
+            (1, 1) / (1, 2), as in phase 11.
 14. tensor_parallel_zoo  the MoE and hymba cells tensor-parallel over
             ``model`` (``TPZ_*``): first ``flash_attention`` on rank 1's
             heads at (b)'s prefill shapes, as 12 (a).  Then, weights from
@@ -497,6 +508,13 @@ ZOO_FLASH_CASES = {"hymba_1728_w1024": "hymba-1.5b", "mixtral_4600_w4096": "mixt
 # 33 cells x 2 production meshes, the MoE widths of mixtral-8x7b (TP) and
 # phi3.5-moe (EP) on 4 x 512 tokens, qwen2-1.5b's prefill cell at 4 x 1024
 DIST_DRY_RECORDS = 66
+# the dry run executes each record's rank-0 program on meta (a fake process
+# group of the production mesh) in this many niced children, started after
+# phase 2 and collected in phase 11; the card's peak of a cell call is held
+# within DIST_PEAK_REL_TOL of the meta run of the same cell and mesh
+DIST_DRY_WORKERS = 4
+DIST_DRY_NICE = 10
+DIST_PEAK_REL_TOL = 0.10
 DIST_MOE_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
 DIST_MOE_TOKENS = (4, 512)
 DIST_PREFILL = (4, 1024)
@@ -2813,12 +2831,16 @@ def phase_zoo_rest(torch, M, K):
 # ----------------------------------------------------------------- phase 11
 
 
-def timed_in_turns(torch, fns: dict, turns: int):
+def timed_in_turns(torch, fns: dict, turns: int, prepare=None):
     """Each named call ``turns`` times, the order alternating every turn
-    (a, b, b, a, ...); device-synchronised wall ms per call, by name."""
+    (a, b, b, a, ...); device-synchronised wall ms per call, by name.
+    ``prepare[name]``, where given, runs before each of that name's calls,
+    off the clock."""
     names, out = list(fns), {n: [] for n in fns}
     for i in range(turns):
         for n in (names if i % 2 == 0 else names[::-1]):
+            if prepare and n in prepare:
+                prepare[n]()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fns[n]()
@@ -2827,27 +2849,90 @@ def timed_in_turns(torch, fns: dict, turns: int):
     return out
 
 
-def dist_dry_run():
-    """(a) every runnable cell on both production meshes, on the meta
-    device: each record ok; per-device argument GB and whether it fits."""
+def start_dry_run():
+    """The dry run of every runnable cell on both production meshes, set
+    executing on meta in DIST_DRY_WORKERS niced children: (pool, pending
+    records).  Phase 11 collects the records, phases 11 and 13 run their
+    peak holds' meta cells in the same pool; ``main`` closes it."""
+    from repro_torch.configs.registry import runnable_cells
+    from repro_torch.launch import dryrun as DR
+
+    pool = DR.account_pool(DIST_DRY_WORKERS, nice=DIST_DRY_NICE)
+    cells = [(arch, shape, multi) for arch, shape in runnable_cells() for multi in (False, True)]
+    return pool, DR.start_cells(cells, pool)
+
+
+def dist_dry_run(pending):
+    """(a) every runnable cell on both production meshes, executed on meta
+    (rank 0's program under a fake process group of the mesh): each record
+    ok; per record the per-device peak, flops, collective bytes, whether the
+    peak fits and the meta run's seconds; the sweep's seconds, the wait for
+    it here and how many of the 66 fit."""
     import contextlib
     import io
 
-    from repro_torch.configs.registry import runnable_cells
-    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.dryrun import finish_cells
 
     t0 = time.perf_counter()
-    recs = []
     with contextlib.redirect_stdout(io.StringIO()):
-        for arch, shape in runnable_cells():
-            for multi in (False, True):
-                recs.append(run_cell(arch, shape, multi, ROOT / "build" / "dryrun"))
+        recs = finish_cells(pending, ROOT / "build" / "dryrun")
+    waited = time.perf_counter() - t0
     bad = [f"{r['arch']} {r['shape']} {r['mesh']}: {r.get('error')}" for r in recs if not r["ok"]]
     check(len(recs) == DIST_DRY_RECORDS and not bad, f"dry run: {len(recs)} records, failed {bad}")
-    return {"records": len(recs), "seconds": time.perf_counter() - t0,
+    return {"records": len(recs), "sweep_seconds": pending.seconds, "waited_s": waited,
+            "workers": DIST_DRY_WORKERS, "cpu_seconds": sum(r["run_s"] for r in recs),
             "hbm_bytes": recs[0]["hbm_bytes"], "fit": sum(r["fits"] for r in recs),
-            "per_device_gb": {f"{r['arch']}/{r['shape']}/{r['mesh']}":
-                              r["memory"]["argument_bytes"] / 1e9 for r in recs}}
+            "fit_by_arguments": sum(r["memory"]["argument_bytes"] <= r["hbm_bytes"]
+                                    for r in recs),
+            "per_record": {f"{r['arch']}/{r['shape']}/{r['mesh']}": {
+                "peak_bytes": r["memory"]["peak_bytes"], "flops": r["flops"],
+                "collectives_total": r["collectives"]["total"], "fits": r["fits"],
+                "run_s": r["run_s"], "argument_bytes": r["memory"]["argument_bytes"]}
+                for r in recs}}
+
+
+def peak_base(torch) -> int:
+    """Start measuring a cell call's peak on the card (off the clock): the
+    garbage of earlier calls collected — tensors that reference cycles hold
+    (the ZeRO-1 gather's DTensors) would otherwise be freed by a collection
+    inside the call and taken off its rise —, the peak reset; returns
+    ``memory_allocated()``."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_since(torch, base, args) -> int:
+    """The call's peak since ``peak_base``: the rise of
+    ``max_memory_allocated()`` over ``base``, plus the arguments' bytes,
+    which the dry run's ``peak_bytes`` counts."""
+    from repro_torch.launch.accounting import nbytes
+
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base + nbytes(list(args))
+
+
+def meta_peaks(pool, jobs) -> list:
+    """The dry run's ``peak_bytes`` of each ``(cfg, shape, mesh shape, axis
+    names, tcfg)`` cell, executed on meta in ``pool``'s children."""
+    from repro_torch.launch.dryrun import account_cells
+
+    res = account_cells(jobs, pool=pool)
+    for r in res:
+        check("error" not in r, f"peak hold: the meta run failed: {r.get('traceback')}")
+    return [r["peak_bytes"] for r in res]
+
+
+def peak_hold(name, measured, meta) -> dict:
+    """The card's peak against the meta run's, held within
+    DIST_PEAK_REL_TOL; the ratio reported either way."""
+    ratio = measured / meta
+    check(abs(ratio - 1) <= DIST_PEAK_REL_TOL,
+          f"{name}: the card's peak {measured} B is {ratio:.4f} of the dry run's {meta} B")
+    return {"card_peak_bytes": measured, "meta_peak_bytes": meta, "ratio": ratio}
 
 
 def dist_train(torch, mesh, handoff):
@@ -2885,11 +2970,15 @@ def dist_train(torch, mesh, handoff):
         losses["train_step"].append(m["loss"].item())
 
     def cell_step():
-        run["params"], run["state"], m = cell.fn(run["params"], run["state"],
-                                                 next(cell_batches))
+        args = (run["params"], run["state"], next(cell_batches))
+        run["params"], run["state"], m = cell.fn(*args)
+        peak["card"] = peak_since(torch, peak["base"], args)
+        del args
         losses["cell"].append(m["loss"].item())
 
-    ms = timed_in_turns(torch, {"train_step": ref_step, "cell": cell_step}, len(batches))
+    peak = {}
+    ms = timed_in_turns(torch, {"train_step": ref_step, "cell": cell_step}, len(batches),
+                        prepare={"cell": lambda: peak.update(base=peak_base(torch))})
     for name, a, b in (("params", run["params"], ref["params"]),
                        ("m", run["state"].m, ref["state"].m),
                        ("v", run["state"].v, ref["state"].v)):
@@ -2899,7 +2988,8 @@ def dist_train(torch, mesh, handoff):
     check(int(run["state"].step) == len(batches), "distributed train: step counter")
     return {"steps": len(batches), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "losses": losses["cell"], "bitwise_equal": True, "step_ms": ms,
-            "note": "the first pair warms both paths"}, grads
+            "card_peak_bytes": peak["card"],
+            "note": "the first pair warms both paths; the peak is the last cell call's"}, grads
 
 
 def dist_compressed(torch, group, grads):
@@ -3053,9 +3143,10 @@ def dist_prefill(torch, K, FK, mesh):
     torch.cuda.synchronize()
     K.reset_launch_counts()
     FK.reset_variant_counts()
+    base = peak_base(torch)
     t0 = time.perf_counter()
     logits, _ = cell.fn(params, local)
-    torch.cuda.synchronize()
+    card_peak = peak_since(torch, base, (params, local))
     cell_ms = (time.perf_counter() - t0) * 1e3
     launches, variants = dict(K.launch_counts), dict(FK.variant_counts)
     cache = T.init_cache(cfg, DIST_PREFILL[0], DIST_PREFILL[1], torch_dtype(cfg.compute_dtype),
@@ -3071,16 +3162,21 @@ def dist_prefill(torch, K, FK, mesh):
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "batch": DIST_PREFILL[0], "prompt_tokens": DIST_PREFILL[1],
             "cell_ms": cell_ms, "logits_bitwise_equal": True, "launches": launches,
-            "flash_attention_variants": variants}, logits
+            "flash_attention_variants": variants, "card_peak_bytes": card_peak}, logits
 
 
-def phase_distributed(torch, K, FK, handoff):
+def phase_distributed(torch, K, FK, handoff, dry):
     """Phase 11: the distribution slice under NCCL at world size 1 (a file
-    store under build/), on a (1, 1) ``(data, model)`` DeviceMesh.  Returns
-    the prefill cell's kernel launches and its logits (for phase 12)."""
+    store under build/), on a (1, 1) ``(data, model)`` DeviceMesh; ``dry``
+    is ``start_dry_run()``'s.  The card's peaks of the train and prefill
+    cells are held to the dry run's meta runs of the same cells at (1, 1).
+    Returns the prefill cell's kernel launches and its logits (for phase
+    12)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import init_process_group
 
     t_phase = time.perf_counter()
@@ -3094,7 +3190,8 @@ def phase_distributed(torch, K, FK, handoff):
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
         out = {"backend": dist.get_backend(), "nccl_version": list(torch.cuda.nccl.version()),
                "torch": torch.__version__, "mesh": {"data": 1, "model": 1}}
-        out["dry_run"] = dist_dry_run()
+        pool, pending = dry
+        out["dry_run"] = dist_dry_run(pending)
         out["train"], grads = dist_train(torch, mesh, handoff)
         out["compressed_all_reduce"] = dist_compressed(torch, mesh.get_group("data"), grads)
         del grads
@@ -3104,6 +3201,16 @@ def phase_distributed(torch, K, FK, handoff):
         del flush
         out["elastic"] = dist_elastic(torch, mesh, handoff["state"])
         out["prefill"], logits = dist_prefill(torch, K, FK, mesh)
+        one = ((1, 1), ("data", "model"))
+        meta = meta_peaks(pool, [
+            (get_config("smollm-135m"), ShapeConfig("train_2k", TRAIN_SEQ, TRAIN_BATCH, "train"),
+             *one, handoff["tcfg"]),
+            (get_config("qwen2-1.5b"), ShapeConfig("prefill_1k", DIST_PREFILL[1],
+                                                   DIST_PREFILL[0], "prefill"), *one, None)])
+        out["peak_holds"] = {
+            "train": peak_hold("distributed train", out["train"]["card_peak_bytes"], meta[0]),
+            "prefill": peak_hold("distributed prefill", out["prefill"]["card_peak_bytes"],
+                                 meta[1])}
         out["seconds"] = time.perf_counter() - t_phase
         emit({"phase": "distributed", **out})
     finally:
@@ -3450,23 +3557,29 @@ def card_name_power() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def tpt_cell_config():
+    """Phase 13's (config, train shape, train config)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    return (get_config("qwen2-1.5b").replace(num_layers=TPT_LAYERS),
+            ShapeConfig("train_tp", TPT_SEQ, TPT_BATCH, "train"),
+            TrainConfig(optimizer=AdamWConfig(learning_rate=TPT_LR, warmup_steps=1)))
+
+
 def tpt_setup(torch, mesh):
     """Phase 13's config, its train cell on ``mesh`` and the batches."""
     import numpy as np
 
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.configs.registry import get_config
     from repro_torch.distributed.sharding import use_mesh
     from repro_torch.launch import specs as SP
     from repro_torch.launch.mesh import rules_for
-    from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.train_step import TrainConfig
 
-    cfg = get_config("qwen2-1.5b").replace(num_layers=TPT_LAYERS)
-    tcfg = TrainConfig(optimizer=AdamWConfig(learning_rate=TPT_LR, warmup_steps=1))
+    cfg, shape, tcfg = tpt_cell_config()
     with use_mesh(mesh, rules_for("train", cfg)):
-        cell = SP.build_cell(cfg, ShapeConfig("train_tp", TPT_SEQ, TPT_BATCH, "train"), mesh,
-                             tcfg)
+        cell = SP.build_cell(cfg, shape, mesh, tcfg)
     rng = np.random.default_rng(0)
     batches = []
     for _ in range(TPT_STEPS):
@@ -3550,13 +3663,20 @@ def tpt_single(_rank, store, work):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
+        overall = 0
         for i, batch in enumerate(batches):
             feed = tpt_batch(torch, cell, mesh, batch)
             for name in (("train_step", "cell") if i % 2 == 0 else ("cell", "train_step")):
+                if name == "cell":
+                    overall = max(overall, torch.cuda.max_memory_allocated())
+                    base = peak_base(torch)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if name == "cell":
-                    run["params"], run["state"], m = cell.fn(run["params"], run["state"], feed)
+                    args = (run["params"], run["state"], feed)
+                    run["params"], run["state"], m = cell.fn(*args)
+                    card_peak = peak_since(torch, base, args)
+                    del args
                 else:
                     ref["params"], ref["state"], m = train_step(cfg, tcfg, ref["params"],
                                                                 ref["state"], feed)
@@ -3586,8 +3706,10 @@ def tpt_single(_rank, store, work):
                   "params": n_params, "batch": TPT_BATCH, "seq": TPT_SEQ, "steps": TPT_STEPS,
                   "losses": losses["cell"], "grad_norms": norms["cell"], "step_ms": ms,
                   "bitwise_equal_train_step": True, "launches": launches,
-                  "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-                  "note": "the first pair warms both paths; (a) holds both training states"}
+                  "peak_memory_bytes": max(overall, torch.cuda.max_memory_allocated()),
+                  "cell_peak_bytes": card_peak,
+                  "note": "the first pair warms both paths; (a) holds both training states; "
+                          "cell_peak_bytes is the last cell call's"}
         (work / "single.json").write_text(json.dumps(report))
     finally:
         dist.destroy_process_group()
@@ -3635,13 +3757,17 @@ def tpt_rank(rank, world, store, work):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
+        overall = 0
         with counted("all_reduce"), counted("all_gather"):
             for i, batch in enumerate(batches):
                 feed = tpt_batch(torch, cell, mesh, batch)
-                torch.cuda.synchronize()
+                overall = max(overall, torch.cuda.max_memory_allocated())
+                base = peak_base(torch)
                 t0 = time.perf_counter()
-                params, state, m = cell.fn(params, state, feed)
-                torch.cuda.synchronize()
+                args = (params, state, feed)
+                params, state, m = cell.fn(*args)
+                card_peak = peak_since(torch, base, args)
+                del args
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 losses.append(m["loss"].item())
                 norms.append(m["grad_norm"].item())
@@ -3651,7 +3777,7 @@ def tpt_rank(rank, world, store, work):
                         check(got.shape == w.shape, f"tensor_parallel_train (b): m{j} shape")
                         m1_err[j] = ((got.cpu() - w).norm() / w.norm().clamp_min(1e-30)).item()
                     del want
-        peak = torch.cuda.max_memory_allocated()
+        peak = max(overall, torch.cuda.max_memory_allocated())
         split = [any(e is not None for e in s)
                  for s in tree_flatten(cell.in_specs[0], is_tuple)[0]]
         torch.save({name: [t.cpu() for t, sp in zip(tree_flatten(tree)[0], split) if not sp]
@@ -3664,13 +3790,14 @@ def tpt_rank(rank, world, store, work):
                                            for op, c in calls.items()},
                   "m_step1_max_rel_err": m1_err[worst], "m_step1_worst_leaf": worst,
                   "launches": dict(K.launch_counts), "peak_memory_bytes": peak,
+                  "cell_peak_bytes": card_peak,
                   "replicated_leaves": len(split) - sum(split), "split_leaves": sum(split)}
         (work / f"rank{rank}.json").write_text(json.dumps(report))
     finally:
         dist.destroy_process_group()
 
 
-def phase_tensor_parallel_train(torch):
+def phase_tensor_parallel_train(torch, pool):
     """Phase 13: the train cell tensor-parallel over ``model`` on full-width
     qwen2-1.5b at TPT_LAYERS layers, each part in processes of its own (the
     card holds what earlier phases left in this one).  (a) Under NCCL at
@@ -3678,8 +3805,10 @@ def phase_tensor_parallel_train(torch):
     sharing the one card (a (1, 2) mesh: heads 8 + 8 — rank 1 holds 4 real
     heads and 4 padded —, one KV head a rank, ffn and vocab split), held to
     (a).  (b)'s times are gloo's: every collective stages through the host.
-    No flash_attention (no backward kernel) on either.  Returns the launches
-    of (a) and of each rank."""
+    No flash_attention (no backward kernel) on either.  The card's peak of a
+    cell call in (a) and on each rank of (b) is held to the dry run's meta
+    run of the cell at (1, 1) / (1, TPT_RANKS) (``pool``'s children).
+    Returns the launches of (a) and of each rank."""
     import gc
 
     import torch.multiprocessing as mp
@@ -3728,6 +3857,13 @@ def phase_tensor_parallel_train(torch):
                          "note": "gloo stages every collective through the host: these "
                                  "times are not NVLink's; collectives counted over groups "
                                  "of more than one rank"}
+    cfg, shape, tcfg = tpt_cell_config()
+    meta = meta_peaks(pool, [(cfg, shape, (1, n), ("data", "model"), tcfg)
+                             for n in (1, TPT_RANKS)])
+    out["peak_holds"] = {
+        "world_size_1": peak_hold("tensor_parallel_train (a)", one["cell_peak_bytes"], meta[0]),
+        "gloo_ranks": [peak_hold(f"tensor_parallel_train (b) rank {rep['rank']}",
+                                 rep["cell_peak_bytes"], meta[1]) for rep in ranks]}
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "tensor_parallel_train", **out})
     return one["launches"], [rep["launches"] for rep in ranks]
@@ -4897,6 +5033,11 @@ def main() -> int:
     kstats = phase_kernels(torch, flush)
     del flush
 
+    # the dry run's 66 records execute on meta in niced children from here
+    # on (phase 11 collects them); the pool's children are daemons, ended
+    # with the script whatever way it ends
+    dry = start_dry_run()
+
     # 3. the main path
     cfg = get_config("smollm-135m")
     t0 = time.perf_counter()
@@ -4976,7 +5117,7 @@ def main() -> int:
     # cell, the data-parallel ZeRO-1 train cell, the int8 reduction,
     # shard-local MoE, the elastic restore and qwen2-1.5b's prefill cell
     from repro_torch.kernels.flash_attention import kernel as FK
-    dist_launches, dist_logits = phase_distributed(torch, K, FK, handoff)
+    dist_launches, dist_logits = phase_distributed(torch, K, FK, handoff, dry)
     del handoff
 
     # 12. tensor parallelism: flash_attention's head offset at full width,
@@ -4988,7 +5129,9 @@ def main() -> int:
     # 13. the train cell tensor-parallel: full-width qwen2-1.5b (14 of 28
     # layers) at world size 1 (NCCL, bitwise train_step) and over 2 gloo
     # ranks sharing the one card
-    tpt_launches, tpt_rank_launches = phase_tensor_parallel_train(torch)
+    tpt_launches, tpt_rank_launches = phase_tensor_parallel_train(torch, dry[0])
+    dry[0].terminate()
+    dry[0].join()
 
     # 14. the MoE and hymba cells tensor-parallel: mixtral-8x7b (TP-MoE),
     # phi3.5-moe (EP) and hymba-1.5b (its Mamba mixer split) at full width,

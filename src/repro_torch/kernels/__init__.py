@@ -13,6 +13,10 @@ the CPU tests import every module, and there is no ``nvcc`` there.
 A kernel that fails to build or launch raises; no wrapper falls back to
 the plain PyTorch version.  Each wrapper adds one to
 ``launch_counts[<name>]`` where it launches its kernel, and nowhere else.
+On ``meta`` tensors (the dry run) each op's ``"auto"`` takes its kernel's
+meta implementation (``meta.py``), which launches nothing and adds the
+call, its flops and its bytes under the kernel's own formula to
+``meta_costs[<name>]``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts: Dict[str, int] = {"paged_attention": 0, "page_gather": 0,
                                  "page_scatter": 0, "flash_attention": 0}
 
+meta_costs: Dict[str, Dict[str, int]] = {
+    k: {"calls": 0, "flops": 0, "bytes": 0} for k in launch_counts}
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -43,6 +50,12 @@ _lock = threading.Lock()
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def reset_meta_costs() -> None:
+    for costs in meta_costs.values():
+        for k in costs:
+            costs[k] = 0
 
 
 def _nvcc() -> str:

@@ -1,34 +1,43 @@
 """Public entries for whole-page install/evict: the ``impl`` switch.
 
-``"auto"`` launches the CUDA kernel for a CUDA pool and runs the plain
-PyTorch version for a CPU pool; ``"cuda"`` and ``"ref"`` force one.  There
-is no fallback.  Pools are ``[P, E]`` or ``[L, P, E]`` (every layer in one
-call); ``page_scatter`` updates ``pool`` in place and returns it.
+``"auto"`` launches the CUDA kernel for a CUDA pool, takes the kernel's
+meta implementation for a meta pool (``kernels/meta.py``: the dry run) and
+runs the plain PyTorch version for a CPU pool; ``"cuda"``, ``"meta"`` and
+``"ref"`` force one.  There is no fallback.  Pools are ``[P, E]`` or
+``[L, P, E]`` (every layer in one call); ``page_scatter`` updates ``pool``
+in place and returns it.
 """
 
 from __future__ import annotations
 
+from ..meta import page_gather_meta, page_scatter_meta
 from .kernel import page_gather as _gather, page_scatter as _scatter
 from .ref import page_gather_ref, page_scatter_ref
 
 
 def _resolve(impl, pool):
     if impl == "auto":
-        return "cuda" if pool.is_cuda else "ref"
-    if impl not in ("cuda", "ref"):
-        raise ValueError(f"unknown impl {impl!r}; choose auto, cuda or ref")
+        return "cuda" if pool.is_cuda else "meta" if pool.is_meta else "ref"
+    if impl not in ("cuda", "meta", "ref"):
+        raise ValueError(f"unknown impl {impl!r}; choose auto, cuda, meta or ref")
     return impl
 
 
 def page_gather(pool, page_ids, impl="auto"):
-    if _resolve(impl, pool) == "cuda":
+    impl = _resolve(impl, pool)
+    if impl == "cuda":
         return _gather(pool, page_ids)
+    if impl == "meta":
+        return page_gather_meta(pool, page_ids)
     return page_gather_ref(pool, page_ids)
 
 
 def page_scatter(pool, page_ids, pages, impl="auto"):
-    if _resolve(impl, pool) == "cuda":
+    impl = _resolve(impl, pool)
+    if impl == "cuda":
         return _scatter(pool, page_ids, pages)
+    if impl == "meta":
+        return page_scatter_meta(pool, page_ids, pages)
     return page_scatter_ref(pool, page_ids, pages)
 
 

@@ -342,7 +342,8 @@ def attn_apply(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor,
                             causal=causal, window=window, num_heads=cfg.num_heads,
                             head_offset=h0).transpose(1, 2)
         if ctx.cache is not None:
-            new_cache = _write_prefill_cache(ctx.cache, k, v, q_pos, window, by_index)
+            new_cache = _write_prefill_cache(ctx.cache, k, v, q_pos, window, by_index,
+                                             index_positions=True)
     elif ctx.mode in ("train", "prefill"):
         # explicit positions (or training, which has no backward kernel):
         # plain dense/chunked attention over expanded KV, on q's heads
@@ -406,15 +407,22 @@ def cross_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict) -> tor
     return _out_proj(p, o.reshape(b, s, -1), hs)
 
 
-def _write_prefill_cache(cache, k, v, positions, window, by_index=False):
+def _write_prefill_cache(cache, k, v, positions, window, by_index=False,
+                         index_positions=False):
     """Install prefilled KV into a (possibly ring) cache, in place.  With
     ``by_index`` (M-RoPE) token ``i`` goes to slot ``i`` and ``pos`` holds
-    its temporal position."""
+    its temporal position.  Where token ``i`` goes to slot ``i`` (that, or
+    ``index_positions``: the positions are ``0..S-1``), a cache without a
+    window keeps the first ``S_cache`` tokens: the reference's scatter drops
+    the writes past its end (the production prefill cells give hymba a
+    prompt of the cache's length behind its meta tokens)."""
     S_cache = cache["k"].shape[1]
     b, s = positions.shape
     if window is not None and S_cache < s:
         # ring cache: keep the last S_cache tokens at slot = pos % S_cache
         k, v, positions = k[:, -S_cache:], v[:, -S_cache:], positions[:, -S_cache:]
+    elif (by_index or index_positions) and S_cache < s:
+        k, v, positions = k[:, :S_cache], v[:, :S_cache], positions[:, :S_cache]
     bi = torch.arange(b, device=k.device)[:, None]
     if by_index:
         slots = torch.arange(positions.shape[1], device=k.device)[None, :]

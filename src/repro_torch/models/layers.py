@@ -68,7 +68,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         # which position component drives each frequency pair
         comp = torch.repeat_interleave(
             torch.arange(3, device=x.device),
-            torch.tensor(mrope_sections, device=x.device))   # [d2]
+            torch.tensor(mrope_sections, device=x.device), output_size=d2)   # [d2]
         angles = positions.float()[:, comp].transpose(1, 2) * inv   # [B, S, d2]
     cos = torch.cos(angles)[..., None, :]                   # [B, S, 1, d2]
     sin = torch.sin(angles)[..., None, :]

@@ -228,7 +228,11 @@ def _remat_layer(cfg: ModelConfig, seg: Segment, layer_p: dict, lctx: BlockCtx, 
 def _temporal_is_index(positions: torch.Tensor) -> bool:
     """Whether the temporal row of [B, 3, S] positions is ``0..S-1`` in
     every row.  Positions the caller built on the host are checked there;
-    positions already on the card cost one host read."""
+    positions already on the card cost one host read.  Meta positions (the
+    dry run) have no values: they take the plain route, which any positions
+    may take."""
+    if positions.is_meta:
+        return False
     t = positions[:, 0]
     return bool((t == torch.arange(t.shape[1], dtype=t.dtype, device=t.device)).all())
 

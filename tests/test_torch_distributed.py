@@ -200,7 +200,7 @@ def test_cell_specs_equal_reference(arch, shape_name):
 def test_dryrun_bytes_equal_reference(arch, shape_name, tmp_path, capsys):
     rcfg, rshape = ref_get_config(arch), REF_SHAPES[shape_name]
     for multi_pod in (False, True):
-        rec = run_cell(arch, shape_name, multi_pod, tmp_path)
+        rec = run_cell(arch, shape_name, multi_pod, tmp_path, execute=False)
         assert rec["ok"], rec.get("traceback")
         rmesh = ref_mesh(multi_pod)
         with ref_rules(ref_rules_for(rshape.kind, rcfg)):
