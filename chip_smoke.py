@@ -153,13 +153,14 @@ Phases, each printing one JSON line:
 9. zoo      the MoE and hybrid decoders, and the dense models run so far
             only as kernel shapes, served through ``ServeEngine`` at full
             width (``ZOO``; bf16, random weights from seed 0 made on the
-            card): hymba-1.5b (nothing cut: 32 layers, d_model 1600, 25 heads
+            card): hymba-1.5b (16 of 32 layers, d_model 1600, 25 heads
             padded to 32 over 5, D 64, 128 meta tokens, window 1024 but on
-            layers 0/16/31, Mamba heads of d_inner 3200), mixtral-8x7b (8 of
+            layer 0, Mamba heads of d_inner 3200), mixtral-8x7b (4 of
             32 layers: 8 experts top-2, window 4096), phi3.5-moe (4 of 32
-            layers: 16 experts top-2), llama3-8b and deepseek-7b (nothing
-            cut).  Each: an fp32 check first where ``ZOO`` has one
-            (hymba-1.5b whole, 1300 tokens; mixtral-8x7b at 2 layers, 4200
+            layers: 16 experts top-2), llama3-8b and deepseek-7b (16 of 32,
+            15 of 30 layers; cut in PR 26 for time).  Each: an fp32 check
+            first where ``ZOO`` has one (hymba-1.5b at its 16 layers, 1300
+            tokens; mixtral-8x7b at 2 layers, 4200
             tokens, past its window; one lane, bucket 1, x 8 new): greedy
             tokens equal to the port's unbatched contiguous decode, whose
             positions count the meta tokens.  Then the bf16 traffic, 4-8
@@ -185,7 +186,7 @@ Phases, each printing one JSON line:
             seed 0 made on the card), each freed before the next, every
             count zeroed just before its traffic and read just after.
             xlstm-1.3b (d_model 2048, 4 heads; its 48 blocks are 6 units of
-            7 mLSTM + 1 sLSTM, served at 24: 3 units) through
+            7 mLSTM + 1 sLSTM, served at 16: 2 units) through
             ``ServeEngine``: first the fp32 check at 8 of 48 blocks (block
             7 the first sLSTM), one lane, a 600-token prompt x 8 new, engine
             tokens equal to contiguous prefill + decode; then 4 prompts of
@@ -254,7 +255,7 @@ Phases, each printing one JSON line:
             under NCCL at world size 1 (``make_host_mesh(model=1)``):
             full-width qwen2-1.5b's prefill cell at 4 x 1024 (phase 11's
             weights and tokens; counts zeroed just before and read after
-            the decode) and 16 steps of its decode cell; the logits bitwise
+            the decode) and 8 steps of its decode cell; the logits bitwise
             phase 11 (f)'s, the greedy tokens (and logits) those of
             ``T.prefill`` + ``T.decode_step``, 28 launches all hopper at
             head offset 0.  (c) The same cells over 2 gloo ranks (spawned
@@ -294,10 +295,10 @@ Phases, each printing one JSON line:
 14. tensor_parallel_zoo  the MoE and hymba cells tensor-parallel over
             ``model`` (``TPZ_*``): first ``flash_attention`` on rank 1's
             heads at (b)'s prefill shapes, as 12 (a).  Then, weights from
-            seed 0 made on the card: mixtral-8x7b (4 of 32 layers, TP-MoE,
+            seed 0 made on the card: mixtral-8x7b (2 of 32 layers, TP-MoE,
             1 x 4608 past its 4096 window), phi3.5-moe (2 of 32, EP at
-            capacity 8.0, 4 x 1024), hymba-1.5b (8 of 32 layers, global
-            layer 0 and 7 windowed ones, 4 x 1024 behind 128 meta tokens)
+            capacity 8.0, 4 x 1024), hymba-1.5b (4 of 32 layers, global
+            layer 0 and 3 windowed ones, 4 x 1024 behind 128 meta tokens)
             through the prefill cell and 16 decode-cell steps,
             and their train cells (1 / 1 / 4 layers, 1 x 2048, 2 AdamW
             steps; phi3.5-moe without its per-slice load-balance loss).
@@ -337,6 +338,24 @@ Phases, each printing one JSON line:
             flash_attention launches hopper at the rank's head offset,
             the prefills counted by route, the decode cache's split read
             from the cell's specs.
+16. examples_dp_moe  (a) the JAX package's example scripts, ported
+            (``repro_torch.examples``), in this process through their
+            ``main``: ``serve_paged`` at its own defaults (the smollm smoke
+            config, 12 requests; its own check that the engine's tokens are
+            unbatched contiguous decode's), ``train_smollm --full``
+            (smollm-135m, 30 layers at d 576, ``EX_TRAIN_STEPS`` steps of 8 x
+            64; its own check that the loss falls), ``quickstart`` and
+            ``out_of_core_sort`` at ``EX_SORT_MB`` (host only: its speed-up
+            is the host's, printed beside the host's CPU); each one's
+            kernel launches counted.  (b) The shard-local MoE under
+            ``parallelism="dp"`` over 2 gloo ranks sharing the card, in a
+            spawn of their own: mixtral-8x7b (TP-MoE) and
+            phi3.5-moe (EP, capacity 8.0) on 14's serve and train configs,
+            every weight whole on every rank and each rank taking its
+            expert shard, the train cell one step, donating its arguments
+            (each rank holds the whole training state); held to 14's (a),
+            where "dp" and "tp" run the same program, with 14's limits;
+            each cell's ms, collectives a step and peak memory a rank.
 
 Then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
 max error, kernel/plain/library times, and the bound: bytes moved over
@@ -348,7 +367,8 @@ flash_attention its phase-2 cases at phase 9's and phase 10's shapes with the
 launches of the model each stands for; for flash_attention also phase 10's
 launches by variant and by mask and the prefills that took the plain
 route, and phase 12 (a)'s, phase 14's and phase 15's cases with (c)'s and
-(b)'s launches; phase 13's launches, zero; phases 14's and 15's by model),
+(b)'s launches; phase 13's launches, zero; phases 14's, 15's and 16's by
+model, and 16's by example),
 the card's
 name and power limit from nvidia-smi, and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises before that line (non-zero exit).  Without a
@@ -457,20 +477,21 @@ TRAIN_PARAM_REL_TOL = 1e-4
 # depends on how many tokens share a dispatch, so batched serving may
 # legitimately route otherwise than unbatched decode)
 ZOO = {
-    # 32 layers, d 1600, 25 heads padded to 32 over 5, D 64, 128 meta tokens,
-    # window 1024 but on layers 0, 16, 31: prompts past 896 tokens bind it
-    "hymba-1.5b": dict(layers=None, lens=[64, 420, 800, 960, 1150, 1400, 1650, 1900],
+    # 16 of 32 layers, d 1600, 25 heads padded to 32 over 5, D 64, 128 meta
+    # tokens, window 1024 but on layer 0 (and 16, 31 past the cut): prompts
+    # past 896 tokens bind it
+    "hymba-1.5b": dict(layers=16, lens=[64, 420, 800, 960, 1150, 1400, 1650, 1900],
                        prefix=500, pages=1280, pps=136, fp32=(None, 1300), bf16_check=True),
-    # 8 of 32 layers (2.90 GB a layer in bf16), 8 experts top-2, window 4096
-    "mixtral-8x7b": dict(layers=8, lens=[4600, 300, 900, 1500, 2200, 3000], prefix=300,
+    # 4 of 32 layers (2.90 GB a layer in bf16), 8 experts top-2, window 4096
+    "mixtral-8x7b": dict(layers=4, lens=[4600, 300, 900, 1500, 2200, 3000], prefix=300,
                          pages=1600, pps=300, fp32=(2, 4200), bf16_check=False),
     # 4 of 32 layers, 16 experts top-2, no window
     "phi3.5-moe-42b-a6.6b": dict(layers=4, lens=[600, 1100, 1500, 2000], prefix=300,
                                  pages=700, pps=136, fp32=None, bf16_check=False),
-    # the dense models, nothing cut
-    "llama3-8b": dict(layers=None, lens=[1024, 1400, 1700, 2048], prefix=300, pages=700,
+    # the dense models, half their layers (16 of 32, 15 of 30)
+    "llama3-8b": dict(layers=16, lens=[1024, 1400, 1700, 2048], prefix=300, pages=700,
                       pps=136, fp32=None, bf16_check=True),
-    "deepseek-7b": dict(layers=None, lens=[1100, 1300, 1600, 2000], prefix=300, pages=700,
+    "deepseek-7b": dict(layers=15, lens=[1100, 1300, 1600, 2000], prefix=300, pages=700,
                         pps=136, fp32=None, bf16_check=True),
 }
 ZOO_NEW_TOKENS = 16
@@ -522,8 +543,9 @@ DIST_PREFILL = (4, 1024)
 # rank's heads at full width, bf16: (B, H, real heads, KVH, S, D, ranks, the
 # head offset timed) — llama3-8b's 32 heads over 4 ranks (whole KV groups),
 # qwen2-1.5b's 16 padded heads over 2 (rank 1: heads 8-11 real, 12-15
-# padded).  (b) / (c): qwen2-1.5b's prefill cell at 4 x 1024, then 16
-# decode-cell steps; (c) over 2 gloo ranks on the one card, its logits held
+# padded).  (b) / (c): qwen2-1.5b's prefill cell at 4 x 1024, then
+# TP_DECODE_STEPS decode-cell steps (16 until PR 26 cut them for time);
+# (c) over 2 gloo ranks on the one card, its logits held
 # to (b)'s per row (bf16 compute: the ranks' partial products summed in fp32
 # round otherwise than one product)
 TP_FLASH_CASES = {
@@ -531,7 +553,7 @@ TP_FLASH_CASES = {
     "qwen2_4096_tp2": (1, 16, 12, 2, 4096, 128, 2, 8, None),
 }
 TP_PREFILL = DIST_PREFILL
-TP_DECODE_STEPS = 16
+TP_DECODE_STEPS = 8
 TP_RANKS = 2
 TP_LOGITS_ROW_TOL = 3e-2
 # phase 13: the train cell tensor-parallel over "model": full-width
@@ -570,9 +592,10 @@ TPT_M_REL_TOL = 5e-2
 # train_step; (b) over TPZ_RANKS gloo ranks sharing the card, held to (a)
 # with phase 12's and 13's limits, or twice (a)'s own bf16 error where
 # larger (mixtral's MoE layers, hymba's of three sums each: a bf16 partial
-# sum rounds otherwise than one product).  The serve depths (mixtral 4 of
-# 32 layers, phi3.5-moe 2, hymba 8) are cut to keep the script's time with
-# phase 15 in it.  phi3.5-moe (EP) is held at a capacity
+# sum rounds otherwise than one product).  The serve depths (mixtral 2 of
+# 32 layers, phi3.5-moe 2, hymba 4) are cut to keep the script's time with
+# phases 15 and 16 in it; phase 16's dp cells are held to this (a).
+# phi3.5-moe (EP) is held at a capacity
 # factor that drops nothing (E / K = 8.0): capacity is per dispatch shard,
 # so at its published factor 2 ranks drop other assignments than one does,
 # by design; the published factor's prefill runs too, reported unheld.  So
@@ -580,9 +603,9 @@ TPT_M_REL_TOL = 5e-2
 # tokens): its train cells are held without it (the z-loss, a plain mean,
 # stays).
 TPZ_SERVE = {
-    "mixtral-8x7b": (4, 1, 4608),
+    "mixtral-8x7b": (2, 1, 4608),
     "phi3.5-moe-42b-a6.6b": (2, 4, 1024),
-    "hymba-1.5b": (8, 4, 1024),
+    "hymba-1.5b": (4, 4, 1024),
 }
 TPZ_TRAIN = {
     "mixtral-8x7b": (1, 1, 2048),
@@ -659,8 +682,8 @@ TPR_FLASH_ARCH = {"seamless_enc_1200_tp2": "seamless-m4t-medium",
                   "qwen2vl_1536_tp2": "qwen2-vl-7b"}
 # phase 10: the rest of the zoo at full width (bf16, random weights from
 # seed 0 made on the card).  xlstm-1.3b through ServeEngine at XLSTM_LAYERS
-# of its 48 blocks (3 of its 6 repeating units of 7 mLSTM + 1 sLSTM; cut
-# to keep the script's time with phase 14 in it): its prompts x
+# of its 48 blocks (2 of its 6 repeating units of 7 mLSTM + 1 sLSTM; cut
+# to keep the script's time with phases 14-16 in it): its prompts x
 # ZOO_NEW_TOKENS, batch 4; the repeating unit's prefill profiled over the
 # XLSTM_PROFILE_PROMPT-token prompt; the fp32 check at 8 of 48 blocks
 # (block 7 the first sLSTM), one lane, a 600-token prompt x 8 new.
@@ -668,8 +691,23 @@ TPR_FLASH_ARCH = {"seamless_enc_1200_tp2": "seamless-m4t-medium",
 # of 32 x 32 between 256 text tokens on each side; the fp32 check at 2 of
 # 28 layers.  seamless-m4t-medium: batch 4 of 1200 frames and a request of
 # 400 frames alone, 32-token decoder prompts, x 32 new.
+# phase 16: the JAX package's example scripts on the card (their ports,
+# repro_torch.examples), then the shard-local MoE under parallelism="dp"
+# over model > 1 at full width.  (a) train_smollm --full takes
+# EX_TRAIN_STEPS steps (its warm-up is 20: the loss must fall past it);
+# out_of_core_sort sorts EX_SORT_MB through an EX_SORT_BUFFER_MB buffer.
+# (b) DPM_ARCHS on phase 14's serve and train configs under "dp", over
+# TPZ_RANKS gloo ranks spawned for it alone, held to phase 14's (a):
+# at world size 1 "dp" and "tp" are the same program.  The train cell takes
+# DPM_TRAIN_STEPS steps donating its arguments: a rank holds the whole
+# training state (mixtral's layer: 29.3 GB at its peak by the dry run's meta
+# accounting, 53.6 GB without donating), and two must fit on the card.
+EX_TRAIN_STEPS = 30
+EX_SORT_MB, EX_SORT_BUFFER_MB = 32, 8
+DPM_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
+DPM_TRAIN_STEPS = 1
 XLSTM_LENS = [256, 700, 1300, 2048]
-XLSTM_LAYERS = 24
+XLSTM_LAYERS = 16
 XLSTM_PROFILE_PROMPT = 1300
 XLSTM_FP32 = (8, 600)
 VLM_PROMPT, VLM_TEXT, VLM_GRID, VLM_NEW = 1536, 256, 32, 16
@@ -678,8 +716,12 @@ ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_ALONE, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1200, 
 EXTRAS_TOL = dict(rtol=2e-3, atol=2e-4)     # tests/test_extras.py, fp32
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started (``t_s``)."""
+    print(json.dumps({**obj, "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 class CheckFailed(AssertionError):
@@ -3872,12 +3914,13 @@ def phase_tensor_parallel_train(torch, pool):
 # ----------------------------------------------------------------- phase 14
 
 
-def tpz_config(arch, kind, cf=None, dtype="bfloat16"):
+def tpz_config(arch, kind, cf=None, dtype="bfloat16", parallelism="tp"):
     """Phase 14's config of ``arch`` for ``kind`` ("serve" or "train"), at
-    capacity factor ``cf`` where given, computing in ``dtype``."""
+    capacity factor ``cf`` where given, computing in ``dtype``, under
+    ``parallelism`` (phase 16: "dp")."""
     from repro_torch.configs.registry import get_config
 
-    cfg = get_config(arch).replace(compute_dtype=dtype)
+    cfg = get_config(arch).replace(compute_dtype=dtype, parallelism=parallelism)
     layers = (TPZ_SERVE if kind == "serve" else TPZ_TRAIN)[arch][0]
     if layers is not None:
         cfg = cfg.replace(num_layers=layers)
@@ -3945,13 +3988,13 @@ class CollectiveCounter:
 
 
 def tpz_serve(torch, K, FK, mesh, arch, forced=None, cf=None, prefill_only=False,
-              reference=False, dtype="bfloat16", steps=TPZ_DECODE_STEPS):
+              reference=False, dtype="bfloat16", steps=TPZ_DECODE_STEPS, parallelism="tp"):
     """``arch``'s prefill cell at TPZ_SERVE's batch and prompt (numpy seed 0
     tokens), then ``steps`` decode-cell steps (:func:`tp_serve`); ``cf``:
     the capacity factor, where given; ``dtype``: the compute's."""
     import numpy as np
 
-    cfg = tpz_config(arch, "serve", cf, dtype)
+    cfg = tpz_config(arch, "serve", cf, dtype, parallelism)
     _, b, prompt = TPZ_SERVE[arch]
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, prompt), dtype=np.int64).astype(np.int32)
@@ -4109,7 +4152,11 @@ def tpz_batches(cfg, b, seq):
     return out
 
 
-def tpz_train_cell(torch, mesh, arch, dtype="bfloat16"):
+def tpz_train_cell(torch, mesh, arch, dtype="bfloat16", parallelism="tp", donate=False,
+                   steps=TPZ_TRAIN_STEPS):
+    """Phase 14's train config of ``arch``, its cell on ``mesh`` (phase 16:
+    under ``parallelism`` "dp", donating its arguments) and its first
+    ``steps`` batches."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.sharding import use_mesh
     from repro_torch.launch import specs as SP
@@ -4117,14 +4164,15 @@ def tpz_train_cell(torch, mesh, arch, dtype="bfloat16"):
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import TrainConfig
 
-    cfg = tpz_config(arch, "train", TPZ_NODROP_CF.get(arch), dtype)
+    cfg = tpz_config(arch, "train", TPZ_NODROP_CF.get(arch), dtype, parallelism)
     _, b, seq = TPZ_TRAIN[arch]
     tcfg = TrainConfig(optimizer=AdamWConfig(learning_rate=TPZ_LR, warmup_steps=1))
     if arch in TPZ_NODROP_CF:       # EP: the load-balance loss is per token slice
         tcfg = dataclasses.replace(tcfg, moe_lb_coeff=0.0)
     with use_mesh(mesh, rules_for("train", cfg)):
-        cell = SP.build_cell(cfg, ShapeConfig("train_tp", seq, b, "train"), mesh, tcfg)
-    return cfg, tcfg, cell, tpz_batches(cfg, b, seq)
+        cell = SP.build_cell(cfg, ShapeConfig("train_tp", seq, b, "train"), mesh, tcfg,
+                             donate=donate)
+    return cfg, tcfg, cell, tpz_batches(cfg, b, seq)[:steps]
 
 
 def fingerprint(torch, tree) -> list:
@@ -4163,6 +4211,22 @@ def tpz_first_m(torch, cell, mesh, batch, params, state) -> list:
     return tree_flatten(state.m)[0]
 
 
+def tp_rank_m_specs(cfg) -> tuple:
+    """(b)'s (1, TPZ_RANKS) mesh as a ``MeshSpec`` and the ZeRO-1 moment
+    specs (tree order) of ``cfg``'s tensor-parallel train cell on it: the
+    slices of (a)'s m after step 1 that (b)'s ranks hold."""
+    from repro_torch.distributed.sharding import MeshSpec, use_mesh
+    from repro_torch.interop import tree_flatten
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models.common import is_tuple
+
+    cfg = cfg.replace(parallelism="tp")
+    ranks_mesh = MeshSpec(("data", "model"), (1, TPZ_RANKS))
+    with use_mesh(ranks_mesh, rules_for("train", cfg)):
+        return ranks_mesh, tree_flatten(SP.opt_pspecs(cfg, ranks_mesh).m, is_tuple)[0]
+
+
 def tpz_train_single(torch, K, mesh, arch, work, train_cell=tpz_train_cell,
                      tag="tensor_parallel_zoo"):
     """(a)'s train part: the TP train cell at world size 1 for
@@ -4173,18 +4237,13 @@ def tpz_train_single(torch, K, mesh, arch, work, train_cell=tpz_train_cell,
     first step computing in fp32, and each leaf's bf16 m after step 1 off
     the fp32 one (the model's own bf16 error).  Saves the cell's m after
     step 1 in bf16 and fp32 compute as each of (b)'s ranks holds it."""
-    from repro_torch.distributed.sharding import MeshSpec, shard_slices, use_mesh
+    from repro_torch.distributed.sharding import shard_slices
     from repro_torch.interop import tree_flatten
-    from repro_torch.launch import specs as SP
-    from repro_torch.launch.mesh import rules_for
-    from repro_torch.models.common import is_tuple
     from repro_torch.train.optimizer import init_state
     from repro_torch.train.train_step import train_step
 
     cfg, tcfg, cell, batches = train_cell(torch, mesh, arch)
-    ranks_mesh = MeshSpec(("data", "model"), (1, TPZ_RANKS))
-    with use_mesh(ranks_mesh, rules_for("train", cfg)):
-        m_specs = tree_flatten(SP.opt_pspecs(cfg, ranks_mesh).m, is_tuple)[0]
+    ranks_mesh, m_specs = tp_rank_m_specs(cfg)
 
     def save_m1(m1, tag):
         for r in range(TPZ_RANKS):
@@ -4255,11 +4314,16 @@ def tpz_train_single(torch, K, mesh, arch, work, train_cell=tpz_train_cell,
 
 
 def tpz_train_rank(torch, K, mesh, arch, work, rank, train_cell=tpz_train_cell,
-                   tag="tensor_parallel_zoo"):
+                   tag="tensor_parallel_zoo", ref_work=None):
     """(b)'s train part on one rank: the TP train cell from (a)'s weights
     (drawn rank by rank) and batches, its m after step 1 against (a)'s slice
-    (per leaf, on the host); its replicated leaves saved for the ranks'
-    comparison; then the first step computing in fp32, against (a)'s."""
+    (per leaf, on the host); its replicated leaves' bit ``fingerprint`` in
+    the report, for the ranks' comparison; then the first step computing in
+    fp32, against (a)'s.  (a)'s files are read from ``ref_work`` (default
+    ``work``); a cell that splits no leaf (phase 16's dp) holds its whole m
+    against every (b) rank's slice of (a)'s."""
+    import math
+
     import torch.distributed as dist
 
     from repro_torch.distributed.sharding import shard_slices
@@ -4286,16 +4350,29 @@ def tpz_train_rank(torch, K, mesh, arch, work, rank, train_cell=tpz_train_cell,
         return params, AdamWState(torch.zeros((), dtype=torch.int32, device="cuda"), zeros(),
                                   zeros())
 
-    def m1_errs(m1, tag):
-        want = torch.load(work / f"m1{tag}_{arch}_rank{rank}.pt")
+    ref = work if ref_work is None else ref_work
+
+    def m1_errs(m1, name):
+        if any(split):
+            pairs = [(m1, torch.load(ref / f"m1{name}_{arch}_rank{rank}.pt"))]
+        else:
+            ranks_mesh, m_specs = tp_rank_m_specs(cfg)
+            pairs = [([t[shard_slices(sp, t.shape, ranks_mesh, (0, r))]
+                       for t, sp in zip(m1, m_specs)],
+                      torch.load(ref / f"m1{name}_{arch}_rank{r}.pt")) for r in range(TPZ_RANKS)]
         out = []
-        for j, (got, w) in enumerate(zip(m1, want)):
-            got = m1_sample(got)
-            check(got.shape == w.shape, f"{tag} (b) {arch}: m{j} shape")
-            out.append(((got - w).norm() / w.norm().clamp_min(1e-30)).item())
+        for j in range(len(m1)):
+            diff = norm = 0.0
+            for got_leaves, want in pairs:
+                got = m1_sample(got_leaves[j])
+                check(got.shape == want[j].shape, f"{tag} (b) {arch}: m{j} shape")
+                diff += (got - want[j]).double().norm().item() ** 2
+                norm += want[j].double().norm().item() ** 2
+            out.append(math.sqrt(diff) / max(math.sqrt(norm), 1e-30))
         return out
 
     cfg, tcfg, cell, batches = train_cell(torch, mesh, arch)
+    split = [any(e is not None for e in s) for s in tree_flatten(cell.in_specs[0], is_tuple)[0]]
     params, state = local_state(cfg, cell)
     losses, norms, step_ms, m1_err = [], [], [], []
     torch.cuda.synchronize()
@@ -4314,14 +4391,13 @@ def tpz_train_rank(torch, K, mesh, arch, work, rank, train_cell=tpz_train_cell,
             if i == 0:
                 m1_err = m1_errs(tree_flatten(state.m)[0], "")
         calls = coll.take()
-    split = [any(e is not None for e in s) for s in tree_flatten(cell.in_specs[0], is_tuple)[0]]
-    torch.save({name: [t.cpu() for t, sp in zip(tree_flatten(tree)[0], split) if not sp]
-                for name, tree in (("params", params), ("m", state.m), ("v", state.v))},
-               work / f"replicated_{arch}_rank{rank}.pt")
+    prints = fingerprint(torch, [[t for t, sp in zip(tree_flatten(tree)[0], split) if not sp]
+                                 for tree in (params, state.m, state.v)])
     report = {"arch": cfg.name, "layers": cfg.num_layers, "losses": losses,
               "grad_norms": norms, "step_ms": step_ms,
-              "collectives_per_step": {op: {k: v / TPZ_TRAIN_STEPS for k, v in c.items()}
+              "collectives_per_step": {op: {k: v / len(batches) for k, v in c.items()}
                                        for op, c in calls.items()},
+              "replicated_prints": prints,
               "m_step1_rel_err": m1_err, "launches": dict(K.launch_counts),
               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
               "replicated_leaves": len(split) - sum(split), "split_leaves": sum(split)}
@@ -4435,13 +4511,14 @@ def row_errs(torch, got, want):
     return (g - w).norm(dim=-1) / w.norm(dim=-1)
 
 
-def hold_train_ranks(torch, one, ranks, work, archs, tag, hold, held):
-    """(b)'s train cells against (a)'s, for phases 14 and 15: each rank's
+def hold_train_ranks(torch, one, ranks, archs, tag, hold, held):
+    """(b)'s train cells against (a)'s, for phases 14 to 16: each rank's
     losses within TPT_LOSS_REL_TOL and grad norms within TPT_GNORM_REL_TOL of
     (a)'s; its m after step 1 within TPT_M_REL_TOL of (a)'s slice or twice
     (a)'s own bf16 error, whichever is larger, and in fp32 within
     TPZ_FP32_M_TOL (per leaf); no kernel launched; the ranks' losses equal
-    and their replicated leaves bitwise.  Failures go to ``hold``."""
+    and their replicated leaves bitwise (their bits' ``fingerprint``).
+    Failures go to ``hold``."""
     for arch in archs:
         a = one["train"][arch]
         for r, rep in enumerate(ranks):
@@ -4469,12 +4546,84 @@ def hold_train_ranks(torch, one, ranks, work, archs, tag, hold, held):
                  f"{tag} (b) {arch} rank {r}: flash_attention launched")
             hold(t["losses"] == ranks[0]["train"][arch]["losses"],
                  f"{tag} (b) {arch}: ranks' losses differ")
-        rep0, rep1 = (torch.load(work / f"replicated_{arch}_rank{r}.pt")
-                      for r in range(TPZ_RANKS))
-        hold(all(torch.equal(x, y) for k in rep0 for x, y in zip(rep0[k], rep1[k]))
+        prints = [rep["train"][arch]["replicated_prints"] for rep in ranks]
+        hold(all(p == prints[0] for p in prints)
              and ranks[0]["train"][arch]["replicated_leaves"] > 0,
              f"{tag} (b) {arch}: replicated leaves differ across ranks")
         held.setdefault(arch, {})["train_replicated_leaves_bitwise"] = True
+
+
+def hold_serve_ranks(torch, arch, cfg, one, ranks, a_work, b_work, tag, hold, per) -> dict:
+    """(b)'s prefill and decode cells of ``arch`` (``cfg``) against (a)'s, for phases 14
+    and 16: (a)'s logits, tokens and routes under ``a_work``, (b)'s (rank
+    0's logits, every rank's routes) under ``b_work``.  Rows whose token
+    some layer routes otherwise than (a) are reported, not held, and must be
+    fewer than half; the rest within TP_LOGITS_ROW_TOL or twice (a)'s own
+    bf16 error, fp32 within TPZ_FP32_ROW_TOL, each fed token within TOL of
+    (a)'s top logit; every prefill's flash_attention hopper at head offset
+    ``r * per`` on rank ``r``.  Failures go to ``hold``; returns the held
+    numbers."""
+    import numpy as np
+
+    a_load = lambda name: torch.from_numpy(np.load(a_work / f"{name}_{arch}.npy"))  # noqa: E731
+    b_load = lambda name: torch.from_numpy(np.load(b_work / f"{name}_{arch}.npy"))  # noqa: E731
+    routes = {t: (torch.load(a_work / f"routes{t}_{arch}.pt"),
+                  [torch.load(b_work / f"routes{t}_{arch}_rank{r}.pt")
+                   for r in range(TPZ_RANKS)]) for t in ("", "32")}
+    want, got = a_load("logits"), b_load("ranks_logits")
+    want32, got32 = a_load("logits32"), b_load("ranks_logits32")
+    b = want.shape[1]
+    flipped = route_flips(torch, cfg, b, *routes[""])
+    n32 = 1 + TPZ_FP32_STEPS
+    flipped32 = route_flips(torch, cfg, b, *routes["32"], steps=TPZ_FP32_STEPS)
+    bf16_flipped = route_flips(torch, cfg, b, routes["32"][0],
+                               [routes[""][0][:len(routes["32"][0])]], steps=TPZ_FP32_STEPS)
+    errs, errs32 = row_errs(torch, got, want), row_errs(torch, got32, want32)
+    # the model's own bf16 error (against fp32 on the same weights and
+    # tokens, its first TPZ_FP32_STEPS steps), where (a) routes alike in
+    # both and (b) as (a)
+    own = row_errs(torch, want[:n32], want32).masked_fill(
+        flipped[:n32] | bf16_flipped, 0).max().item()
+    limit = max(TP_LOGITS_ROW_TOL, 2 * own)
+    tol = TOL["bfloat16"]
+    mine, top = got.argmax(-1), want.max(-1).values
+    gap = top - want.gather(-1, mine[..., None])[..., 0]
+    held_rows = ~flipped
+    hold(int(held_rows.sum()) * 2 > held_rows.numel(),
+         f"{tag} (b) {arch}: routing differs from (a)'s on "
+         f"{int(flipped.sum())} of {flipped.numel()} rows")
+    hold(float(errs.masked_fill(flipped, 0).max()) <= limit,
+         f"{tag} (b) {arch}: logits row errors {errs.tolist()} over "
+         f"{limit}, routing differing on {flipped.tolist()}")
+    hold(float(errs32.masked_fill(flipped32, 0).max()) <= TPZ_FP32_ROW_TOL
+         and int((~flipped32).sum()) * 2 > flipped32.numel(),
+         f"{tag} (b) {arch} fp32: logits row errors {errs32.tolist()}, "
+         f"routing differing on {flipped32.tolist()}")
+    hold(bool((gap[held_rows] <= tol["atol"] + tol["rtol"] * top[held_rows].abs()).all()),
+         f"{tag} (b) {arch}: a fed token is {gap.max().item()} below (a)'s top logit")
+    equal = int((mine == want.argmax(-1)).sum())
+    for r, rep in enumerate(ranks):
+        s = rep["serve"][arch]
+        n = s["launches"]["flash_attention"]
+        hold(n == cfg.num_layers
+             and s["flash_attention_variants"] == {"hopper": n, "generic": 0}
+             and s["flash_attention_calls_by_head_offset"] == {str(r * per): n},
+             f"{tag} (b) {arch} rank {r}: {s['flash_attention_variants']}, "
+             f"{s['flash_attention_calls_by_head_offset']}")
+    a = one["serve"][arch]
+    n = a["launches"]["flash_attention"]
+    hold(n == cfg.num_layers and a["flash_attention_variants"] == {"hopper": n, "generic": 0}
+         and a["flash_attention_calls_by_head_offset"] == {"0": n},
+         f"{tag} (a) {arch}: {a['flash_attention_variants']}, "
+         f"{a['flash_attention_calls_by_head_offset']}")
+    return {"logits_row_err": errs.masked_fill(flipped, 0).max(-1).values.tolist(),
+            "limit": limit, "bf16_own_row_err": own,
+            "greedy_tokens_equal": equal, "greedy_tokens": mine.numel(),
+            "rows_routed_otherwise": int(flipped.sum()), "rows": flipped.numel(),
+            "their_logits_row_err": errs[flipped].tolist(),
+            "float32": {"logits_row_err": float(errs32.masked_fill(flipped32, 0).max()),
+                        "rows_routed_otherwise": int(flipped32.sum()),
+                        "their_logits_row_err": errs32[flipped32].tolist()}}
 
 
 def phase_tensor_parallel_zoo(torch, work, out, spawned):
@@ -4523,66 +4672,9 @@ def phase_tensor_parallel_zoo(torch, work, out, spawned):
 
     for arch in TPZ_SERVE:
         cfg = tpz_config(arch, "serve")
-        load = lambda name: torch.from_numpy(np.load(work / f"{name}_{arch}.npy"))  # noqa: E731
-        routes = {tag: (torch.load(work / f"routes{tag}_{arch}.pt"),
-                        [torch.load(work / f"routes{tag}_{arch}_rank{r}.pt")
-                         for r in range(TPZ_RANKS)]) for tag in ("", "32")}
-        want, got = load("logits"), load("ranks_logits")
-        want32, got32 = load("logits32"), load("ranks_logits32")
-        b = want.shape[1]
-        flipped = route_flips(torch, cfg, b, *routes[""])
-        n32 = 1 + TPZ_FP32_STEPS
-        flipped32 = route_flips(torch, cfg, b, *routes["32"], steps=TPZ_FP32_STEPS)
-        bf16_flipped = route_flips(torch, cfg, b, routes["32"][0],
-                                   [routes[""][0][:len(routes["32"][0])]], steps=TPZ_FP32_STEPS)
-        errs, errs32 = row_errs(torch, got, want), row_errs(torch, got32, want32)
-        # the model's own bf16 error (against fp32 on the same weights and
-        # tokens, its first TPZ_FP32_STEPS steps), where (a) routes alike in
-        # both and (b) as (a)
-        own = row_errs(torch, want[:n32], want32).masked_fill(
-            flipped[:n32] | bf16_flipped, 0).max().item()
-        limit = max(TP_LOGITS_ROW_TOL, 2 * own)
-        tol = TOL["bfloat16"]
-        mine, top = got.argmax(-1), want.max(-1).values
-        gap = top - want.gather(-1, mine[..., None])[..., 0]
-        held_rows = ~flipped
-        hold(int(held_rows.sum()) * 2 > held_rows.numel(),
-             f"tensor_parallel_zoo (b) {arch}: routing differs from (a)'s on "
-             f"{int(flipped.sum())} of {flipped.numel()} rows")
-        hold(float(errs.masked_fill(flipped, 0).max()) <= limit,
-             f"tensor_parallel_zoo (b) {arch}: logits row errors {errs.tolist()} over "
-             f"{limit}, routing differing on {flipped.tolist()}")
-        hold(float(errs32.masked_fill(flipped32, 0).max()) <= TPZ_FP32_ROW_TOL
-             and int((~flipped32).sum()) * 2 > flipped32.numel(),
-             f"tensor_parallel_zoo (b) {arch} fp32: logits row errors {errs32.tolist()}, "
-             f"routing differing on {flipped32.tolist()}")
-        hold(bool((gap[held_rows] <= tol["atol"] + tol["rtol"] * top[held_rows].abs()).all()),
-             f"tensor_parallel_zoo (b) {arch}: a fed token is {gap.max().item()} below (a)'s "
-             "top logit")
-        equal = int((mine == want.argmax(-1)).sum())
-        per = cfg.padded_heads // TPZ_RANKS
-        for r, rep in enumerate(ranks):
-            s = rep["serve"][arch]
-            n = s["launches"]["flash_attention"]
-            hold(n == cfg.num_layers
-                  and s["flash_attention_variants"] == {"hopper": n, "generic": 0}
-                  and s["flash_attention_calls_by_head_offset"] == {str(r * per): n},
-                  f"tensor_parallel_zoo (b) {arch} rank {r}: {s['flash_attention_variants']}, "
-                  f"{s['flash_attention_calls_by_head_offset']}")
         a = one["serve"][arch]
-        n = a["launches"]["flash_attention"]
-        hold(n == cfg.num_layers and a["flash_attention_variants"] == {"hopper": n, "generic": 0}
-              and a["flash_attention_calls_by_head_offset"] == {"0": n},
-              f"tensor_parallel_zoo (a) {arch}: {a['flash_attention_variants']}, "
-              f"{a['flash_attention_calls_by_head_offset']}")
-        held[arch] = {"logits_row_err": errs.masked_fill(flipped, 0).max(-1).values.tolist(),
-                      "limit": limit, "bf16_own_row_err": own,
-                      "greedy_tokens_equal": equal, "greedy_tokens": mine.numel(),
-                      "rows_routed_otherwise": int(flipped.sum()), "rows": flipped.numel(),
-                      "their_logits_row_err": errs[flipped].tolist(),
-                      "float32": {"logits_row_err": float(errs32.masked_fill(flipped32, 0).max()),
-                                  "rows_routed_otherwise": int(flipped32.sum()),
-                                  "their_logits_row_err": errs32[flipped32].tolist()}}
+        held[arch] = hold_serve_ranks(torch, arch, cfg, one, ranks, work, work,
+                                      "tensor_parallel_zoo", hold, cfg.padded_heads // TPZ_RANKS)
         if arch in TPZ_NODROP_CF:
             w = torch.from_numpy(np.load(work / f"logits_{arch}_published.npy"))
             g = torch.from_numpy(np.load(work / f"ranks_logits_{arch}_published.npy"))
@@ -4593,7 +4685,7 @@ def phase_tensor_parallel_zoo(torch, work, out, spawned):
                 "drop_frac_by_rank": [rep["serve"][arch]["published_capacity"]
                                       .get("prefill_drop_frac") for rep in ranks],
                 "note": "capacity is per dispatch shard: not held"}
-    hold_train_ranks(torch, one, ranks, work, TPZ_TRAIN, "tensor_parallel_zoo", hold, held)
+    hold_train_ranks(torch, one, ranks, TPZ_TRAIN, "tensor_parallel_zoo", hold, held)
     out["gloo_ranks"] = {"ranks": ranks, "wall_s": wall, "held": held,
                          "note": "gloo stages every collective through the host: these "
                                  "times are not NVLink's; collectives counted over groups "
@@ -4770,9 +4862,59 @@ def tpr_rank_part(torch, K, FK, mesh, work, rank) -> dict:
                       for arch in TPR_TRAIN}}
 
 
-# phases 14 and 15's parts, by work directory under build/dist: (a)'s, (b)'s
+def dpm_train_cell(torch, mesh, arch, dtype="bfloat16"):
+    """Phase 16's train cell of ``arch``: phase 14's under "dp", donating
+    its arguments, DPM_TRAIN_STEPS batches."""
+    return tpz_train_cell(torch, mesh, arch, dtype, "dp", donate=True, steps=DPM_TRAIN_STEPS)
+
+
+def dpm_rank_part(torch, K, FK, mesh, work, rank) -> dict:
+    """Phase 16 (b)'s part on one rank, in a :func:`tp_models_rank` process
+    of its own: phase 14's cells of DPM_ARCHS under "dp" on the
+    (1, TPZ_RANKS) mesh, bf16 then fp32, the decode teacher-forced with 14
+    (a)'s tokens; then their train cells, held to 14 (a)'s files (read from
+    its work directory); rank 0 writes the logits."""
+    import numpy as np
+
+    ref = work.parent / "tp_zoo"
+    report = {"rank": rank, "coordinate": list(mesh.get_coordinate()), "serve": {},
+              "train": {}}
+    for arch in DPM_ARCHS:
+        forced = torch.from_numpy(np.load(ref / f"tokens_{arch}.npy"))
+        for name, dtype, steps in (("", "bfloat16", TPZ_DECODE_STEPS),
+                                   ("32", "float32", TPZ_FP32_STEPS)):
+            rep, logits, _ = tpz_serve(torch, K, FK, mesh, arch, forced=forced,
+                                       cf=TPZ_NODROP_CF.get(arch), dtype=dtype, steps=steps,
+                                       parallelism="dp")
+            torch.save(rep.pop("routes"), work / f"routes{name}_{arch}_rank{rank}.pt")
+            if name:
+                report["serve"][arch]["float32"] = rep
+            else:
+                report["serve"][arch] = rep
+            if rank == 0:
+                np.save(work / f"ranks_logits{name}_{arch}.npy",
+                        torch.stack([lg.float() for lg in logits]).cpu().numpy())
+            del logits
+    # each rank computes the replicated layers whole: their bits stay equal
+    # across the ranks only under deterministic kernels (the backward of
+    # GQA's KV expansion adds with atomics otherwise)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch in DPM_ARCHS:
+            report["train"][arch] = tpz_train_rank(torch, K, mesh, arch, work, rank,
+                                                   dpm_train_cell, "examples_dp_moe",
+                                                   ref_work=ref)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    report["deterministic_algorithms"] = "train"
+    return report
+
+
+# phases 14, 15 and 16's parts, by work directory under build/dist: (a)'s,
+# (b)'s (phase 16 (b) is held to phase 14's (a))
 TP_MODEL_PARTS = {"tp_zoo": (tpz_single_part, tpz_rank_part),
-                  "tp_rest": (tpr_single_part, tpr_rank_part)}
+                  "tp_rest": (tpr_single_part, tpr_rank_part),
+                  "dp_moe": (None, dpm_rank_part)}
 
 
 def tp_models_single(_rank, store, work_root):
@@ -4795,6 +4937,8 @@ def tp_models_single(_rank, store, work_root):
     try:
         mesh = make_host_mesh("cuda", model=1)
         for name, (part, _) in TP_MODEL_PARTS.items():
+            if part is None:
+                continue
             work = Path(work_root) / name
             t0 = time.perf_counter()
             report = part(torch, K, FK, mesh, work)
@@ -4804,10 +4948,20 @@ def tp_models_single(_rank, store, work_root):
         dist.destroy_process_group()
 
 
-def tp_models_rank(rank, world, store, work_root):
-    """(b) of phases 14 and 15: one of ``world`` gloo ranks sharing the one
-    card, a (1, world) ``(data, model)`` mesh; each part in turn writes the
-    rank's report (with its own wall time) to ``rank<r>.json``."""
+def tp_models_rank(rank, world, store, work_root, names):
+    """(b) of phases 14 to 16: one of ``world`` gloo ranks sharing the one
+    card, a (1, world) ``(data, model)`` mesh; each part of ``names`` in turn
+    writes the rank's report (with its own wall time) to ``rank<r>.json``.  The
+    allocator grows its segments in place (``expandable_segments``): phase
+    16's ranks each hold a whole training state of ~39 GB, and the card's
+    memory is shared.  cuBLAS's reproducible workspace is set for phase 16's
+    deterministic train cells."""
+    import os
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    # cuBLAS's reproducible workspace, for phase 16's deterministic train
+    # cells: set before the first handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     import torch.distributed as dist
     from datetime import timedelta
@@ -4820,7 +4974,8 @@ def tp_models_rank(rank, world, store, work_root):
                             timeout=timedelta(seconds=600))
     try:
         mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
-        for name, (_, part) in TP_MODEL_PARTS.items():
+        for name in names:
+            part = TP_MODEL_PARTS[name][1]
             work = Path(work_root) / name
             t0 = time.perf_counter()
             report = part(torch, K, FK, mesh, work, rank)
@@ -4832,11 +4987,14 @@ def tp_models_rank(rank, world, store, work_root):
 
 def phase_tensor_parallel_models(torch):
     """Phases 14 and 15 (:func:`phase_tensor_parallel_zoo`,
-    :func:`phase_tensor_parallel_rest`): each phase's flash_attention cases
-    in this process, then both phases' (a) parts in one spawned process and
-    both phases' (b) parts in one spawn of TPZ_RANKS ranks, so each
-    process's start-up is paid once for the two; then each phase's holds and
-    its line.  Returns the two phases' results."""
+    :func:`phase_tensor_parallel_rest`), and phase 16 (b): 14's and 15's
+    flash_attention cases in this process, then their (a) parts in one
+    spawned process and their (b) parts in one spawn of TPZ_RANKS ranks, so
+    each process's start-up is paid once; then phase 16 (b) in a spawn of
+    TPZ_RANKS ranks of its own (its ranks each hold a whole training state:
+    what 14's and 15's parts leave in a process would not fit beside it);
+    then 14's and 15's holds and lines.  Returns the two phases' results and
+    the spawned processes' times (phase 16 holds its part later)."""
     import gc
 
     import torch.multiprocessing as mp
@@ -4852,21 +5010,31 @@ def phase_tensor_parallel_models(torch):
     del flush
     gc.collect()
     torch.cuda.empty_cache()
-    stores = {k: work_root / f"tp_models_{k}_store" for k in ("nccl", "gloo")}
+    stores = {k: work_root / f"tp_models_{k}_store" for k in ("nccl", "gloo", "gloo_dp")}
     for store in stores.values():
         store.unlink(missing_ok=True)
+    (work_root / "dp_moe").mkdir(parents=True, exist_ok=True)
+    # what this process keeps on the card while the spawned ranks run
+    held_here = {"script_process_allocated_bytes": torch.cuda.memory_allocated(),
+                 "card_free_bytes_at_spawn": torch.cuda.mem_get_info()[0]}
     t0 = time.perf_counter()
     mp.start_processes(tp_models_single, args=(str(stores["nccl"]), str(work_root)), nprocs=1,
                        start_method="spawn", join=True)
     t1 = time.perf_counter()
-    mp.start_processes(tp_models_rank, args=(TPZ_RANKS, str(stores["gloo"]), str(work_root)),
+    mp.start_processes(tp_models_rank, args=(TPZ_RANKS, str(stores["gloo"]), str(work_root),
+                                             ("tp_zoo", "tp_rest")),
                        nprocs=TPZ_RANKS, start_method="spawn", join=True)
-    spawned = {"world_size_1_process_s": t1 - t0,
-               "gloo_ranks_processes_s": time.perf_counter() - t1,
-               "note": "both phases' parts and each process's start-up"}
+    t2 = time.perf_counter()
+    mp.start_processes(tp_models_rank, args=(TPZ_RANKS, str(stores["gloo_dp"]), str(work_root),
+                                             ("dp_moe",)),
+                       nprocs=TPZ_RANKS, start_method="spawn", join=True)
+    spawned = {"world_size_1_process_s": t1 - t0, "gloo_ranks_processes_s": t2 - t1,
+               "dp_gloo_ranks_processes_s": time.perf_counter() - t2,
+               "note": "the phases' parts (14 and 15; 16 (b)) and each process's start-up",
+               **held_here}
     zoo = phase_tensor_parallel_zoo(torch, work_root / "tp_zoo", outs["tp_zoo"], spawned)
     rest = phase_tensor_parallel_rest(torch, work_root / "tp_rest", outs["tp_rest"], spawned)
-    return zoo, rest
+    return zoo, rest, spawned
 
 
 def tpr_flash_expected(cfg, image=False) -> tuple:
@@ -4985,7 +5153,7 @@ def phase_tensor_parallel_rest(torch, work, out, spawned):
                  f"tensor_parallel_rest {arch} image block: not the plain route alone")
             held[arch]["image_block"] = {"logits_row_err": e, "limit": lim,
                                          "bf16_own_row_err": own_i, "float32_logits_row_err": e32}
-    hold_train_ranks(torch, one, ranks, work, TPR_TRAIN, "tensor_parallel_rest", hold, held)
+    hold_train_ranks(torch, one, ranks, TPR_TRAIN, "tensor_parallel_rest", hold, held)
     out["gloo_ranks"] = {"ranks": ranks, "wall_s": wall, "held": held,
                          "note": "gloo stages every collective through the host: these "
                                  "times are not NVLink's; collectives counted over groups "
@@ -4999,6 +5167,128 @@ def phase_tensor_parallel_rest(torch, work, out, spawned):
     return ({arch: s["launches"] for arch, s in one["serve"].items()},
             [{arch: s["launches"] for arch, s in rep["serve"].items()} for rep in ranks],
             out["head_offset"])
+
+
+# ----------------------------------------------------------------- phase 16
+
+
+def host_cpu() -> str:
+    """The host's CPU model and logical CPU count (host-only numbers name it)."""
+    import os
+    import platform
+
+    model = platform.processor() or platform.machine() or "unknown"
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    except OSError:
+        pass
+    return f"{model}, {os.cpu_count()} logical CPUs"
+
+
+def run_example(torch, K, FK, module, argv) -> dict:
+    """``module.main(argv)`` with its standard output captured, the launch
+    counts zeroed just before and read just after, the card's peak from its
+    start; its lines, seconds, launches, variants and peak.  A failed
+    assertion of the example raises."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    FK.reset_variant_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"  [{module.__name__.rsplit('.', 1)[-1]}] {line[:400]}", flush=True)
+    check(rc == 0, f"examples_dp_moe (a) {module.__name__}: exit code {rc}")
+    return {"argv": argv, "seconds": seconds, "lines": lines[-4:],
+            "launches": dict(K.launch_counts),
+            "flash_attention_variants": dict(FK.variant_counts),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_examples_dp_moe(torch, K, FK, spawned):
+    """Phase 16: (a) the ported example scripts on the card, in this
+    process (:func:`run_example`): each ends with its own closing line, so
+    its own assertion held (``paged-decode cross-check OK``: the engine's
+    tokens are contiguous decode's; ``train_smollm OK``: the loss fell;
+    ``quickstart OK``; the sort's runs descending); serve_paged launched
+    paged_attention, page_scatter and flash_attention.  (b) The dp MoE
+    cells of DPM_ARCHS, run in ranks of their own (:func:`dpm_rank_part`),
+    held to phase 14's (a) as 14 holds its (b):
+    :func:`hold_serve_ranks` (every rank on all heads: head offset 0) and
+    :func:`hold_train_ranks`; every rank's prefill collectives hold the
+    MoE's over ``model`` (TP-MoE's sum, EP's two all-to-alls a layer).
+    (b)'s times are gloo's.  Returns (a)'s launches by example and (b)'s
+    by rank and model."""
+    from repro_torch.examples import out_of_core_sort, quickstart, serve_paged, train_smollm
+
+    t_phase = time.perf_counter()
+    out = {"card": card_name_power()}
+    failures = []
+
+    def hold(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    ex = out["examples"] = {}
+    ex["serve_paged"] = run_example(torch, K, FK, serve_paged, [])
+    ex["train_smollm"] = run_example(torch, K, FK, train_smollm,
+                                     ["--full", "--steps", str(EX_TRAIN_STEPS)])
+    ex["quickstart"] = run_example(torch, K, FK, quickstart, [])
+    ex["out_of_core_sort"] = run_example(torch, K, FK, out_of_core_sort,
+                                         ["--mb", str(EX_SORT_MB),
+                                          "--buffer-mb", str(EX_SORT_BUFFER_MB)])
+    ex["out_of_core_sort"]["host_cpu"] = host_cpu()
+    ex["out_of_core_sort"]["note"] = "the paging core runs on the host: host times"
+    for name, last in (("serve_paged", "paged-decode cross-check OK"),
+                       ("train_smollm", "train_smollm OK"), ("quickstart", "quickstart OK"),
+                       ("out_of_core_sort", "first run descending: True")):
+        check(ex[name]["lines"][-1] == last,
+              f"examples_dp_moe (a) {name}: last line {ex[name]['lines'][-1]!r}")
+    launched = ex["serve_paged"]["launches"]
+    check(all(launched[k] > 0 for k in ("paged_attention", "page_scatter", "flash_attention")),
+          f"examples_dp_moe (a) serve_paged: launches {launched}")
+    out["examples_s"] = time.perf_counter() - t_phase
+
+    t_b = time.perf_counter()
+    work_root = ROOT / "build" / "dist"
+    work = work_root / "dp_moe"
+    one = json.loads((work_root / "tp_zoo" / "single.json").read_text())
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TPZ_RANKS)]
+    held = {}
+    for arch in DPM_ARCHS:
+        cfg = tpz_config(arch, "serve", parallelism="dp")
+        held[arch] = hold_serve_ranks(torch, arch, cfg, one, ranks, work_root / "tp_zoo", work,
+                                      "examples_dp_moe", hold, 0)
+        expect = "all_to_all_single" if cfg.moe_sharding == "ep" else "all_reduce"
+        for r, rep in enumerate(ranks):
+            calls = rep["serve"][arch]["prefill_collectives"]
+            hold(calls.get(expect, {}).get("calls", 0) >= cfg.num_layers,
+                 f"examples_dp_moe (b) {arch} rank {r}: prefill collectives {calls}")
+    hold_train_ranks(torch, one, ranks, DPM_ARCHS, "examples_dp_moe", hold, held)
+    wall = max(rep["wall_s"] for rep in ranks)
+    out["dp_moe"] = {"world_size_1": "phase 14's (a): the same program at world size 1",
+                     "gloo_ranks": {"ranks": ranks, "wall_s": wall, "held": held},
+                     "note": "gloo stages every collective through the host: these times "
+                             "are not NVLink's; collectives counted over groups of more "
+                             "than one rank"}
+    out["seconds"] = out["examples_s"] + wall + time.perf_counter() - t_b
+    out["shared_processes"] = spawned
+    out["failures"] = failures
+    emit({"phase": "examples_dp_moe", **out})
+    check(not failures, "examples_dp_moe: " + "; ".join(failures))
+    return ({name: e["launches"] for name, e in ex.items()},
+            [{arch: s["launches"] for arch, s in rep["serve"].items()} for rep in ranks])
 
 
 def main() -> int:
@@ -5142,7 +5432,12 @@ def main() -> int:
     # and qwen2-1.5b's decode cache split by KV heads; the two phases' parts
     # share their processes
     ((tpz_launches, tpz_rank_launches, tpz_cases),
-     (tpr_launches, tpr_rank_launches, tpr_cases)) = phase_tensor_parallel_models(torch)
+     (tpr_launches, tpr_rank_launches, tpr_cases), spawned) = phase_tensor_parallel_models(torch)
+
+    # 16. the JAX package's example scripts, ported, on the card; and the
+    # shard-local MoE under parallelism="dp" over 2 gloo ranks (run in the
+    # processes of 14 and 15), mixtral-8x7b (TP-MoE) and phi3.5-moe (EP)
+    ex_launches, dpm_rank_launches = phase_examples_dp_moe(torch, K, FK, spawned)
 
     # launches: each kernel's count on the path that carries it (decode
     # kernels on the serve phase, flash_attention on the long-prompt phase)
@@ -5174,7 +5469,11 @@ def main() -> int:
                                         "world_size_1": {a: n[name]
                                                          for a, n in tpr_launches.items()},
                                         "gloo_ranks": [{a: n[name] for a, n in r.items()}
-                                                       for r in tpr_rank_launches]}},
+                                                       for r in tpr_rank_launches]},
+                                    "examples": {e: n[name] for e, n in ex_launches.items()},
+                                    "examples_dp_moe_gloo_ranks": [
+                                        {a: n[name] for a, n in r.items()}
+                                        for r in dpm_rank_launches]},
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"]}

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+__version__ = "1.0.0"            # the JAX package's
+
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises if it names CUDA and there

@@ -22,6 +22,10 @@ of the value).  So:
 
 * ``all_reduce_sum`` (partial -> replicated): backward is the identity;
 * ``all_gather`` (sharded -> replicated): backward takes this rank's slice;
+* ``take_shard`` (replicated -> sharded, the reverse): forward takes this
+  rank's slice, backward gathers the ranks' slices of the gradient into the
+  whole gradient (a replicated weight that a rank uses only a shard of: the
+  experts under ``parallelism="dp"``);
 * ``to_local_region`` (replicated -> rank-local work): identity forward,
   backward the sum of the ranks' partial gradients.  It goes wherever a
   replicated tensor enters work that each rank does on its own shard: the
@@ -145,6 +149,23 @@ class _AllGather(torch.autograd.Function):
         return grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None, None
 
 
+class _TakeShard(torch.autograd.Function):
+    """Replicated -> sharded: this rank's slice along ``dim`` forward, the
+    ranks' gradient slices concatenated along ``dim`` backward."""
+
+    @staticmethod
+    def forward(ctx, t, dim, shard, group):
+        ctx.dim, ctx.parts, ctx.group = dim, shard.parts, group
+        return t.narrow(dim, shard.offset, shard.size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        parts = [torch.empty_like(grad) for _ in range(ctx.parts)]
+        dist.all_gather(parts, grad, group=ctx.group)
+        return torch.cat(parts, dim=ctx.dim), None, None, None
+
+
 class _ToLocalRegion(torch.autograd.Function):
     """Replicated -> rank-local work: the identity forward, the sum of the
     ranks' partial gradients backward."""
@@ -196,6 +217,18 @@ def all_gather(t: torch.Tensor, dim: int, shard: Shard) -> torch.Tensor:
     if not shard.split:
         return t
     return _AllGather.apply(t, dim, shard, _group(shard))
+
+
+def take_shard(t: torch.Tensor, dim: int, shard: Shard) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``t``, which is whole and
+    replicated over ``shard``'s axis.  Backward: the ranks' gradient slices
+    gathered, so every rank holds the whole gradient."""
+    if not shard.split:
+        return t
+    if t.shape[dim] != shard.total:
+        raise ValueError(f"take_shard: dimension {dim} of {tuple(t.shape)} is not the "
+                         f"{shard.total} that the shard splits")
+    return _TakeShard.apply(t, dim, shard, _group(shard))
 
 
 def to_local_region(t: torch.Tensor, shard: Shard) -> torch.Tensor:

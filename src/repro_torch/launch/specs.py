@@ -225,8 +225,43 @@ def batch_part(o_spec: tuple, p_spec: tuple) -> tuple:
     return tuple(e if pe is None else None for e, pe in zip(o_spec, p_spec))
 
 
+# elements that an in-place update computes at a time
+IN_PLACE_CHUNK = 1 << 24
+
+
+def _blocks(shape: Tuple[int, ...], limit: int):
+    """Index tuples covering ``shape`` in blocks of leading rows of at most
+    ``limit`` elements (one element where a row alone is larger)."""
+    if math.prod(shape) <= limit:
+        yield ()
+        return
+    inner = math.prod(shape[1:])
+    if inner <= limit:
+        rows = max(1, limit // inner)
+        for i in range(0, shape[0], rows):
+            yield (slice(i, i + rows),)
+        return
+    for i in range(shape[0]):
+        for rest in _blocks(shape[1:], limit):
+            yield (i,) + rest
+
+
+def _update_in_place(ocfg: AdamWConfig, p, g, m, v, scalars) -> None:
+    """``adamw_elementwise`` over blocks of at most IN_PLACE_CHUNK elements
+    (:func:`_blocks`), written back into ``p``, ``m`` and ``v``: the bits of
+    the whole-leaf update, which is chunk-invariant, with one block's
+    temporaries alive at a time."""
+    for blk in _blocks(tuple(p.shape), IN_PLACE_CHUNK):
+        p_l, m_l, v_l = adamw_elementwise(ocfg, p[blk].float(), g[blk].float(), m[blk],
+                                          v[blk], *scalars)
+        p[blk].copy_(p_l)
+        m[blk].copy_(m_l)
+        v[blk].copy_(v_l)
+
+
 def zero1_local_update(ocfg: AdamWConfig, params, grads, opt_local: AdamWState,
-                       o_specs: AdamWState, scalars, mesh, coord=None, p_specs=None):
+                       o_specs: AdamWState, scalars, mesh, coord=None, p_specs=None,
+                       in_place: bool = False):
     """One AdamW update of the ZeRO-1 shard at ``coord`` (this rank's by
     default): ``(new param slices, new local state)``.  ``params`` and
     ``grads`` are this rank's shards under ``p_specs`` (default: whole, the
@@ -234,7 +269,8 @@ def zero1_local_update(ocfg: AdamWConfig, params, grads, opt_local: AdamWState,
     ``scalars`` is ``update_scalars`` of the whole gradient's norm, so each
     element's result is ``apply_update``'s.  Each leaf's slice is the batch
     part (:func:`batch_part`) of its moment spec, taken of the param
-    shard."""
+    shard.  ``in_place``: the update is written into the param slices and
+    the moments themselves (:func:`_update_in_place`), which it returns."""
     p_leaves, treedef = tree_flatten(params)
     g_leaves = tree_flatten(grads)[0]
     specs = tree_flatten(o_specs.m, is_tuple)[0]
@@ -244,6 +280,12 @@ def zero1_local_update(ocfg: AdamWConfig, params, grads, opt_local: AdamWState,
     new_p, new_m, new_v = [], [], []
     for p, g, s, base, m, v in zip(p_leaves, g_leaves, specs, bases, m_leaves, v_leaves):
         sl = shard_slices(batch_part(s, base), p.shape, mesh, coord)
+        if in_place:
+            _update_in_place(ocfg, p[sl], g[sl], m, v, scalars)
+            new_p.append(p[sl])
+            new_m.append(m)
+            new_v.append(v)
+            continue
         p_l, m_l, v_l = adamw_elementwise(ocfg, p[sl].float(), g[sl].float(), m, v, *scalars)
         new_p.append(p_l.to(p.dtype))
         new_m.append(m_l)
@@ -300,7 +342,8 @@ def _unbatched(c_specs) -> list:
     return [{k: s[:1] + (None,) + s[2:] for k, s in seg.items()} for seg in c_specs]
 
 
-def _train_fn(cfg, tcfg, mesh, rules, p_specs, o_specs, b_specs, params, opt_state, batch):
+def _train_fn(cfg, tcfg, mesh, rules, p_specs, o_specs, b_specs, donate, params, opt_state,
+              batch):
     _require_device_mesh(mesh)
     groups = [mesh.get_group(a) for a in entry_axes(b_specs["labels"][0])]
     labels, mask = batch["labels"], batch.get("loss_mask")
@@ -319,9 +362,14 @@ def _train_fn(cfg, tcfg, mesh, rules, p_specs, o_specs, b_specs, params, opt_sta
         gnorm = global_norm(grads, _leaf_shards(p_specs, mesh))
     scalars = update_scalars(tcfg.optimizer, opt_state.step, gnorm)
     p_local, opt_state = zero1_local_update(tcfg.optimizer, params, grads, opt_state,
-                                            o_specs, scalars, mesh, p_specs=p_specs)
-    params = tree_map(lambda p, s, base: gather_shard(p, batch_part(s, base), mesh),
-                      p_local, o_specs.m, p_specs, is_leaf=is_tuple)
+                                            o_specs, scalars, mesh, p_specs=p_specs,
+                                            in_place=donate)
+    new = tree_map(lambda p, s, base: gather_shard(p, batch_part(s, base), mesh),
+                   p_local, o_specs.m, p_specs, is_leaf=is_tuple)
+    if donate:      # the updated shards in the arguments' own storage
+        new = tree_map(lambda old, t: old if t.data_ptr() == old.data_ptr() else old.copy_(t),
+                       params, new)
+    params = new
     metrics.update(tokens=n_total, grad_norm=gnorm, lr=scalars[1])
     return params, opt_state, metrics
 
@@ -361,10 +409,14 @@ def _decode_fn(cfg, shape, mesh, rules, params, cache, tokens, cur_pos):
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
-               tcfg: Optional[TrainConfig] = None) -> Cell:
+               tcfg: Optional[TrainConfig] = None, donate: bool = False) -> Cell:
     """The cell's callable, meta arguments and outputs, and specs, under the
     active rules (``use_mesh(mesh, rules_for(shape.kind, cfg))``), which
-    the callables run under."""
+    the callables run under.  ``donate`` (train): the step writes the
+    updated params and moments into its arguments' storage and returns
+    them, as the reference's ``donate_argnums=(0, 1)`` lets XLA do, so no
+    second training state is alive at its peak; the caller must not read
+    the arguments as the old values after."""
     rules = active_rules()
     p_specs = param_pspecs(cfg, mesh)
     a_params = abstract_params(cfg)
@@ -375,7 +427,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         tcfg = tcfg or TrainConfig()
         o_specs = opt_pspecs(cfg, mesh)
         a_opt = abstract_opt_state(cfg)
-        fn = partial(_train_fn, cfg, tcfg, mesh, rules, p_specs, o_specs, b_specs)
+        fn = partial(_train_fn, cfg, tcfg, mesh, rules, p_specs, o_specs, b_specs, donate)
         return Cell(fn, (a_params, a_opt, a_batch), (p_specs, o_specs, b_specs),
                     (a_params, a_opt), (p_specs, o_specs))
 

@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..distributed.tensor_parallel import (Shard, all_gather, all_reduce_sum, axis_shard,
-                                           from_copies, to_local_region)
+                                           from_copies, take_shard, to_local_region)
 from .common import ParamSpec, fan_in_init, normal_init
 
 
@@ -55,7 +55,9 @@ def moe_forward(p: dict, x: torch.Tensor, top_k: int,
     ``shard_local=True`` under an active ``DeviceMesh`` takes the
     mesh-local dispatch (§Perf H1); then ``x`` is this rank's tokens and
     ``p`` holds this rank's expert shards (``moe_sharding``: "tp" shards
-    d_ff over ``model``, "ep" the experts)."""
+    d_ff over ``model``, "ep" the experts), or the whole experts where the
+    rules replicate them (``parallelism="dp"``): each rank then takes its
+    shard itself."""
     if shard_local:
         from ..distributed.sharding import active_mesh, is_device_mesh
 
@@ -173,6 +175,22 @@ def _mean_over(v: torch.Tensor, groups) -> torch.Tensor:
     return v / n
 
 
+def _expert_shards(p: dict, moe_sharding: str) -> dict:
+    """Whole expert weights (replicated over ``model``) -> this rank's
+    shard of them over ``model``: TP-MoE's d_ff columns of ``w_gate`` /
+    ``w_up`` and rows of ``w_down``, or EP's block of experts.  The router
+    stays whole."""
+    dims = ({"w_gate": 0, "w_up": 0, "w_down": 0} if moe_sharding == "ep"
+            else {"w_gate": 2, "w_up": 2, "w_down": 1})
+    total = p["w_gate"].shape[dims["w_gate"]]
+    sh = axis_shard("model", total)
+    if total % sh.parts:
+        raise ValueError(f"shard-local MoE ({moe_sharding}): {total} "
+                         f"{'experts' if moe_sharding == 'ep' else 'd_ff columns'} do not "
+                         f"split over model {sh.parts}")
+    return {**p, **{k: take_shard(p[k], dim, sh) for k, dim in dims.items()}}
+
+
 def _moe_forward_shard_local(p: dict, x: torch.Tensor, top_k: int,
                              capacity_factor: float, moe_sharding: str,
                              mesh) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -196,10 +214,18 @@ def _moe_forward_shard_local(p: dict, x: torch.Tensor, top_k: int,
     does not divide are routed whole on every peer, and the outputs, the
     same on every peer, leave through ``from_copies``.
 
+    Under ``parallelism="dp"`` the rules replicate the experts, so ``p``
+    holds them whole on every rank; the reference's ``shard_map`` splits
+    them over ``model`` all the same, so each rank takes its shard
+    (:func:`_expert_shards`) and the dispatch above runs on it.  ``x`` is
+    then too the data shard, the same on every ``model`` peer: the cells
+    split the batch over the data axes alone.
+
     The gradients follow ``distributed/tensor_parallel.py``'s rule over
     ``model`` (a replicated tensor carries its whole gradient on every
     rank): what enters rank-local work does so through
-    ``to_local_region``.  The aux losses are averaged over ``model`` where
+    ``to_local_region``, and a whole expert weight's shard through
+    ``take_shard``.  The aux losses are averaged over ``model`` where
     its peers routed distinct tokens (``all_reduce_sum / n``), and over the
     data groups by ``_mean_over``, as the reference's ``pmean``.
     """
@@ -211,8 +237,7 @@ def _moe_forward_shard_local(p: dict, x: torch.Tensor, top_k: int,
     ms = axis_shard("model")
     rule = active_rules().get("expert" if moe_sharding == "ep" else "expert_ffn")
     if ms.split and "model" not in entry_axes(rule):
-        raise NotImplementedError(f"shard-local MoE over model {ms.parts} with its experts' "
-                                  f"rule {rule!r}: the weights are not split over model")
+        p = _expert_shards(p, moe_sharding)
     b, s, d = x.shape
 
     def leave(y, aux):

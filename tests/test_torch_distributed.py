@@ -48,7 +48,7 @@ from repro.launch.mesh import rules_for as ref_rules_for
 from repro.models.common import count_params as ref_count_params
 from repro.models.common import tree_bytes as ref_tree_bytes
 from repro_torch.ckpt import checkpoint as ckpt
-from repro_torch.configs.base import SHAPES, ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.configs.registry import (ARCH_IDS, get_config, get_shape, get_smoke_config,
                                          runnable_cells, skipped_cells)
 from repro_torch.core import HostArrayStore
@@ -428,6 +428,19 @@ def test_moe_shard_local_matches_dense(one_rank):
 
 
 def test_zero1_update_over_two_shards_is_bitwise_apply_update():
+    zero1_update_over_two_shards(in_place=False)
+
+
+def test_zero1_update_in_place_is_bitwise_apply_update(monkeypatch):
+    """Written into the param slices and moments in blocks of a few rows (a
+    small IN_PLACE_CHUNK makes every leaf several blocks): the same bits."""
+    monkeypatch.setattr(SP, "IN_PLACE_CHUNK", 64)
+    zero1_update_over_two_shards(in_place=True)
+
+
+def zero1_update_over_two_shards(in_place):
+    """Each ZeRO-1 shard's update (``zero1_local_update``, ``in_place`` or
+    as new tensors) bitwise ``apply_update``'s."""
     cfg = get_smoke_config("smollm-135m")
     ocfg = opt.AdamWConfig(warmup_steps=2)
     params = T.init_params(cfg, seed=0, device="cpu")
@@ -441,13 +454,16 @@ def test_zero1_update_over_two_shards_is_bitwise_apply_update():
     o_specs = SP.opt_pspecs(cfg, mesh)
     assert any(e == "data" for s in port_specs(o_specs.m) for e in s)
     scalars = opt.update_scalars(ocfg, state.step, opt.global_norm(grads))
+    given = tree_map(torch.clone, params)
     got_p = tree_map(torch.empty_like, params)
     got_m, got_v = tree_map(torch.empty_like, state.m), tree_map(torch.empty_like, state.v)
     for coord in ((0, 0), (1, 0)):
         local = SP.local_tree(state, o_specs, mesh, coord)
-        p_l, s_l = SP.zero1_local_update(ocfg, params, grads, local, o_specs, scalars,
-                                         mesh, coord)
+        p_l, s_l = SP.zero1_local_update(ocfg, given, grads, local, o_specs, scalars,
+                                         mesh, coord, in_place=in_place)
         assert int(s_l.step) == int(want_s.step)
+        for a, b in zip(tree_flatten((local.m, local.v))[0], tree_flatten((s_l.m, s_l.v))[0]):
+            assert (a.data_ptr() == b.data_ptr()) == in_place
         for full, part, spec in zip(*(tree_flatten(t)[0] for t in (got_p, p_l)),
                                     port_specs(o_specs.m)):
             full[S.shard_slices(spec, full.shape, mesh, coord)] = part
@@ -458,3 +474,38 @@ def test_zero1_update_over_two_shards_is_bitwise_apply_update():
     for got, want in ((got_p, want_p), (got_m, want_s.m), (got_v, want_s.v)):
         for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
             assert torch.equal(a, b)
+    # in place, both shards' updates land in the params given
+    for a, b, c in zip(*(tree_flatten(t)[0] for t in (given, want_p, params))):
+        assert torch.equal(a, b if in_place else c)
+
+
+def test_donating_train_cell_updates_its_arguments_bitwise(one_rank):
+    """The train cell with ``donate=True`` returns its arguments' storage,
+    updated, with the bits of the cell that returns new tensors, over two
+    steps."""
+    cfg = get_smoke_config("smollm-135m")
+    tcfg = TrainConfig(optimizer=opt.AdamWConfig(learning_rate=3e-3, warmup_steps=1))
+    mesh = device_mesh((1, 1), ("data", "model"))
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.from_numpy(t[:, sl]) for k, sl in (("tokens", slice(0, -1)),
+                                                            ("labels", slice(1, None)))}
+               for t in (rng.integers(0, cfg.vocab_size, (2, 17)).astype(np.int32)
+                         for _ in range(2))]
+    runs = {}
+    for donate in (False, True):
+        with S.use_mesh(mesh, rules_for("train", cfg)):
+            cell = SP.build_cell(cfg, ShapeConfig("t", 16, 2, "train"),
+                                 mesh, tcfg, donate=donate)
+        params = T.init_params(cfg, seed=0, device="cpu")
+        state = opt.init_state(params)
+        for batch in batches:
+            args = (params, state)
+            params, state, metrics = cell.fn(params, state, batch)
+            same = [a.data_ptr() == b.data_ptr() for a, b in
+                    zip(tree_flatten((args[0], args[1].m, args[1].v))[0],
+                        tree_flatten((params, state.m, state.v))[0])]
+            assert all(same) if donate else not any(same)
+        runs[donate] = (params, state, float(metrics["loss"]))
+    assert runs[False][2] == runs[True][2]
+    for a, b in zip(*(tree_flatten((r[0], r[1].m, r[1].v))[0] for r in runs.values())):
+        assert torch.equal(a, b)

@@ -17,7 +17,8 @@ sliced off), so every rank works in every case.
   to the norm) of the JAX package's ``train_step`` on the whole batch.
 * Shard-local MoE, TP and EP, on (1, 2) and (2, 2) at capacity factor 1.0
   (tokens dropped, asserted): outputs and aux within 1e-5 of the
-  reference's ``_moe_forward_shard_local`` on the same mesh shape; one
+  reference's ``_moe_forward_shard_local`` on the same mesh shape, with the
+  experts passed as their shards and, under ``parallelism="dp"``, whole; one
   backward through EP on (2, 2) against dense autograd at capacity 8.0,
   the loss whole on every rank.
 * ``reshard_tree``: each rank's local shard equal to the reference's
@@ -172,9 +173,12 @@ def rank_train(out):
 
 
 def rank_moe(out):
+    import types
+
     import torch.distributed as dist
 
     from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import rules_for
     from repro_torch.models.moe import _moe_forward_dense, moe_forward
 
     for mname, shape in MOE_MESHES.items():
@@ -196,11 +200,17 @@ def rank_moe(out):
             p_l = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in p_l.items()}
             with use_mesh(mesh):
                 y, aux = moe_forward(p_l, x_l, MOE_K, 1.0, shard_local=True, moe_sharding=kind)
-            key = f"moe/{mname}/{kind}"
-            out[f"{key}/y"] = y.numpy()
-            out[f"{key}/coord"] = np.asarray([d, m])
-            for k, v in aux.items():
-                out[f"{key}/{k}"] = np.asarray(float(v))
+            # parallelism="dp": the rules replicate the experts, so every
+            # rank passes them whole and takes its shard itself
+            with use_mesh(mesh, rules_for("train", types.SimpleNamespace(parallelism="dp"))):
+                y_dp, aux_dp = moe_forward({k: torch.from_numpy(v) for k, v in p.items()}, x_l,
+                                           MOE_K, 1.0, shard_local=True, moe_sharding=kind)
+            for key, y, aux in ((f"moe/{mname}/{kind}", y, aux),
+                                (f"moe/{mname}/{kind}_dp", y_dp, aux_dp)):
+                out[f"{key}/y"] = y.numpy()
+                out[f"{key}/coord"] = np.asarray([d, m])
+                for k, v in aux.items():
+                    out[f"{key}/{k}"] = np.asarray(float(v))
 
     # one backward through EP on (2, 2) against dense autograd at capacity 8.0,
     # each rank's loss whole (y . cot over its data shard's tokens): the
@@ -415,19 +425,24 @@ def test_dp_zero1_train_matches_reference(runs, case):
     assert (shards > 0) == (data_ranks > 1), "ZeRO-1 moments not sharded as the specs say"
 
 
-@pytest.mark.parametrize("mesh_name,kind", [(m, k) for m in MOE_MESHES for k in ("tp", "ep")])
+@pytest.mark.parametrize("mesh_name,kind", [(m, k) for m in MOE_MESHES
+                                             for k in ("tp", "ep", "tp_dp", "ep_dp")])
 def test_moe_shard_local_matches_reference(runs, mesh_name, kind):
+    """The "_dp" kinds pass the experts whole under ``parallelism="dp"``'s
+    rules; the reference's ``shard_map`` splits them over ``model`` whatever
+    the rules, so its one call is held against both."""
     ref, ranks = runs
     key = f"moe/{mesh_name}/{kind}"
+    want = f"moe/{mesh_name}/{kind.removesuffix('_dp')}"
     n_data = MOE_MESHES[mesh_name][0]
     bl = MOE_X[0] // n_data
-    assert float(ref[f"{key}/moe_drop_frac"]) > 0, "the case must drop tokens"
+    assert float(ref[f"{want}/moe_drop_frac"]) > 0, "the case must drop tokens"
     for r in ranks:
         d, _ = r[f"{key}/coord"]
-        np.testing.assert_allclose(r[f"{key}/y"], ref[f"{key}/y"][d * bl:(d + 1) * bl],
+        np.testing.assert_allclose(r[f"{key}/y"], ref[f"{want}/y"][d * bl:(d + 1) * bl],
                                    atol=MOE_TOL, rtol=MOE_TOL)
         for k in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac"):
-            np.testing.assert_allclose(r[f"{key}/{k}"], ref[f"{key}/{k}"],
+            np.testing.assert_allclose(r[f"{key}/{k}"], ref[f"{want}/{k}"],
                                        atol=MOE_TOL, rtol=MOE_TOL)
 
 

@@ -75,6 +75,13 @@ def test_port_imports_no_jax_and_no_reference_module():
         assert mod in res["imported"], f"{mod} was not walked"
 
 
+def test_version_is_the_references():
+    import repro
+    import repro_torch
+
+    assert repro_torch.__version__ == repro.__version__
+
+
 def test_flatten_order_matches_jax_tree_util():
     tree = {"b": 1, "a": {"z": [3, 4], "c": (5, None, 6)}, "m": None,
             "k": [{"y": 7, "x": 8}]}

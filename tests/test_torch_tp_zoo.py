@@ -18,7 +18,13 @@ Cases, fp32 smoke configs:
   (1, 2), (1, 4) and (2, 2) ``("data", "model")``;
 * ``hymba-smoke`` (5 heads padded to 8 over 1 KV head, so every ``KV·D``
   shard cuts it; ``d_inner`` 128; 4 meta tokens; window 8 but on the
-  global layers 0 and 3) on (1, 2) and (1, 4).
+  global layers 0 and 3) on (1, 2) and (1, 4);
+* the two MoE configs under ``parallelism="dp"`` on (1, 2) and (2, 2)
+  (``"1x2_dp"``, ``"2x2_dp"``): every weight replicated by the rules, the
+  experts taken rank by rank as the reference's ``shard_map`` takes them
+  (TP-MoE's d_ff, EP's experts), at capacity factor ``DP_CF`` 1.0, where
+  tokens drop, so the capacity groups (TP's data shard, EP's token slice)
+  are the reference's; no cache leaf is split over ``model``.
 
 Each case runs the prefill cell over a 12-token prompt (behind hymba's meta
 tokens) into a cache of the prompt, the meta tokens and the 4 steps, then 4
@@ -49,8 +55,10 @@ per-leaf check holds, agree to fp32 rounding.
 Gradients over 2 ranks, fp64, each against autograd on the whole tensors
 in one process, the loss whole on every rank (as in the train cell), within
 1e-6: the shard-local MoE, TP and EP (EP also on tokens 2 ranks cannot
-split), at capacity 8.0, its loss holding the aux losses; hymba's Mamba
-mixer split over ``ssm_inner``.
+split), at capacity 8.0, its loss holding the aux losses; the same three
+under ``parallelism="dp"`` (the params whole on every rank, their
+gradients whole) at ``DP_CF``, where tokens drop; hymba's Mamba mixer split
+over ``ssm_inner``.
 """
 
 import functools
@@ -75,10 +83,12 @@ MESHES = {
     "1x2": ((1, 2), ("data", "model")),
     "1x4": ((1, 4), ("data", "model")),
     "2x2": ((2, 2), ("data", "model")),
+    "1x2_dp": ((1, 2), ("data", "model")),     # parallelism="dp", DP_CF
+    "2x2_dp": ((2, 2), ("data", "model")),
 }
 ARCH_MESHES = {             # the smoke configs of these
-    "mixtral-8x7b": ("1x2", "1x4", "2x2"),
-    "phi3.5-moe-42b-a6.6b": ("1x2", "1x4", "2x2"),
+    "mixtral-8x7b": ("1x2", "1x4", "2x2", "1x2_dp", "2x2_dp"),
+    "phi3.5-moe-42b-a6.6b": ("1x2", "1x4", "2x2", "1x2_dp", "2x2_dp"),
     "hymba-1.5b": ("1x2", "1x4"),
 }
 CASES = [(a, m) for a, ms in ARCH_MESHES.items() for m in ms]
@@ -86,8 +96,10 @@ B, PROMPT, STEPS = 2, 12, 4                  # serve: prompt, greedy decode step
 TB, TS, TSTEPS, LR = 4, 16, 3, 3e-3         # train: batch, length, AdamW steps
 TOL = 2e-5
 GRAD_TOL = 1e-6
-GRAD_CASES = ("moe_tp", "moe_ep", "moe_ep_unsplit", "mamba")
+GRAD_CASES = ("moe_tp", "moe_ep", "moe_ep_unsplit", "mamba",
+              "moe_tp_dp", "moe_ep_dp", "moe_ep_unsplit_dp")
 MOE_D, MOE_FF, MOE_E, MOE_K, MOE_CF = 16, 32, 4, 2, 8.0
+DP_CF = 1.0                 # the "_dp" cases' capacity factor: tokens drop
 MOE_LB, MOE_Z = 0.1, 0.01                    # the aux losses' weights in the loss
 
 
@@ -134,6 +146,16 @@ def coord_key(coord) -> str:
     return "".join(str(int(c)) for c in coord)
 
 
+def is_dp(name) -> bool:
+    return name.endswith("_dp")
+
+
+def case_config(cfg, mname):
+    """A "_dp" mesh's config (either package's): ``parallelism="dp"``, the
+    experts replicated by the rules, at DP_CF, where tokens drop."""
+    return cfg.replace(parallelism="dp", capacity_factor=DP_CF) if is_dp(mname) else cfg
+
+
 # ------------------------------------------------------------- the ranks
 
 
@@ -172,6 +194,7 @@ def rank_serve(out, arch, mname):
     from repro_torch.models.common import is_tuple
 
     cfg, params = smoke(arch)
+    cfg = case_config(cfg, mname)
     mesh = rank_mesh(*MESHES[mname])
     key = f"{arch}/{mname}"
     out[f"{key}/coord"] = np.asarray(mesh.get_coordinate())
@@ -216,6 +239,7 @@ def rank_train(out, arch, mname):
     from repro_torch.train.train_step import TrainConfig
 
     cfg, full = smoke(arch)
+    cfg = case_config(cfg, mname)
     tcfg = TrainConfig(optimizer=AdamWConfig(learning_rate=LR, warmup_steps=1))
     mesh = rank_mesh(*MESHES[mname])
     with use_mesh(mesh, rules_for("train", cfg)):
@@ -266,9 +290,10 @@ def grad_case(name):
         x_shape = (2, 12, d)
     else:
         kind = name.split("_")[1]
+        cf = DP_CF if is_dp(name) else MOE_CF
         specs = moe.moe_param_specs(MOE_D, MOE_FF, MOE_E, kind)
         # 15 tokens: 2 EP ranks cannot split them, and each routes them all
-        x_shape = (3, 5, MOE_D) if name == "moe_ep_unsplit" else (4, 8, MOE_D)
+        x_shape = (3, 5, MOE_D) if name.startswith("moe_ep_unsplit") else (4, 8, MOE_D)
     leaves, treedef = tree_flatten(specs)
     params = tree_unflatten(treedef, [torch.from_numpy(0.3 * rng.standard_normal(s.shape))
                                       for s in leaves])
@@ -285,10 +310,18 @@ def grad_case(name):
 
     def fn(p, x_, whole):
         if not whole:
-            y, aux = moe.moe_forward(p, x_, MOE_K, MOE_CF, shard_local=True,
+            y, aux = moe.moe_forward(p, x_, MOE_K, cf, shard_local=True,
                                      moe_sharding=kind)
+        elif name == "moe_ep_dp":
+            # EP dispatches a distinct half of the tokens on each of its 2
+            # ranks, with capacity counted over the half: the halves'
+            # outputs, and the mean of their aux losses
+            halves = [moe._moe_forward_dense(p, h[None], MOE_K, cf)
+                      for h in x_.reshape(-1, MOE_D).chunk(2)]
+            y = torch.cat([h[0][0] for h in halves]).reshape(x_.shape)
+            aux = {k: (halves[0][1][k] + halves[1][1][k]) / 2 for k in halves[0][1]}
         else:
-            y, aux = moe._moe_forward_dense(p, x_, MOE_K, MOE_CF)
+            y, aux = moe._moe_forward_dense(p, x_, MOE_K, cf)
             if name == "moe_ep":
                 # EP routes a distinct half of the tokens on each of its 2
                 # ranks: the aux losses are the mean of the halves'
@@ -304,9 +337,13 @@ def grad_case(name):
 
 def rank_grads(out):
     """Each gradient case on a (1, 2) mesh: this rank's shards of the
-    params, the whole input, the loss whole on every rank; its gradients
-    against autograd on the whole tensors in this process.  Outputs split
-    over ``ssm_inner`` (the Mamba states) are held at the rank's slice."""
+    params (the "_dp" cases: the whole params, as ``parallelism="dp"``'s
+    rules replicate them), the whole input, the loss whole on every rank;
+    its gradients against autograd on the whole tensors in this process.
+    Outputs split over ``ssm_inner`` (the Mamba states) are held at the
+    rank's slice."""
+    import types
+
     from repro_torch.distributed.sharding import logical_pspec, shard_slices, use_mesh
     from repro_torch.distributed.tensor_parallel import shard_of
     from repro_torch.interop import tree_flatten, tree_map
@@ -320,7 +357,8 @@ def rank_grads(out):
         xw = x.clone().requires_grad_(True)
         loss, want = fn(whole, xw, True)
         loss.backward()
-        with use_mesh(mesh, rules_for("train")):
+        par = types.SimpleNamespace(parallelism="dp" if is_dp(name) else "tp")
+        with use_mesh(mesh, rules_for("train", par)):
             specs = tree_map(lambda a, t: logical_pspec(a, t.shape, mesh), axes, params,
                              is_leaf=is_tuple)
             local = tree_map(lambda t, s: t[shard_slices(s, t.shape, mesh)].clone()
@@ -345,6 +383,8 @@ def rank_grads(out):
         out[f"grad/{name}/errs"] = np.asarray(list(errs.values()))
         out[f"grad/{name}/names"] = np.asarray(list(errs))
         out[f"grad/{name}/split_leaves"] = np.asarray(split)
+        if name.startswith("moe"):
+            out[f"grad/{name}/drop_frac"] = np.asarray(float(got[3]))
 
 
 def rank_main(rank, world, pg_path, out_dir):
@@ -401,7 +441,9 @@ def reference_main(path, arch, kind):
     leaves = draw_params([(s.shape, s.logical_axes) for s in specs],
                          (cfg.num_heads, cfg.head_dim))
     seq = seq_len(cfg)
+    base = cfg
     for mname in ARCH_MESHES[arch]:
+        cfg = case_config(base, mname)
         shape, names = MESHES[mname]
         key = f"{arch}/{mname}"
         mesh = Mesh(devs[:math.prod(shape)].reshape(shape), names)
@@ -534,7 +576,8 @@ def test_decode_cell_matches_reference(runs, arch, mname):
     ref, ranks = runs
     key = f"{arch}/{mname}"
     n = n_cache(ranks, f"{key}/decode/cache")
-    n_model = dict(zip(MESHES[mname][1], MESHES[mname][0]))["model"]
+    # the cache leaves the model axis splits ("_dp": none)
+    n_model = 1 if is_dp(mname) else dict(zip(MESHES[mname][1], MESHES[mname][0]))["model"]
     for r in ranks:
         coord = r[f"{key}/coord"]
         rows = batch_rows(mname, coord, B)
@@ -548,7 +591,7 @@ def test_decode_cell_matches_reference(runs, arch, mname):
             whole = ref[f"{key}/decode/cache{i}"]
             assert got.shape == want.shape, (i, got.shape, want.shape)
             # every leaf split over model: k / v / pos by sequence, ssm /
-            # conv by channel
+            # conv by channel ("_dp": none)
             assert math.prod(got.shape) * n_model * (B // got.shape[1]) == whole.size, i
             if got.dtype.kind == "i":                       # pos: exact
                 np.testing.assert_array_equal(got, want)
@@ -594,11 +637,13 @@ def test_train_cell_matches_reference(runs, arch, mname):
 def test_train_replicated_leaves_bitwise_across_model_ranks(runs, arch, mname):
     """Ranks that differ only in their ``model`` coordinate hold the same
     bits of every replicated leaf and of its moments; the experts' (or the
-    Mamba mixer's) leaves are among the split ones."""
+    Mamba mixer's) leaves are among the split ones, but under "_dp", where
+    every leaf is replicated (the experts too: each rank gathers their
+    whole gradient from its peers' shards)."""
     _, ranks = runs
     key = f"{arch}/{mname}/train"
     split = ranks[0][f"{key}/split"]
-    assert split.any() and not split.all()
+    assert not split.any() if is_dp(mname) else (split.any() and not split.all())
     groups = {}
     for r in ranks:
         groups.setdefault(coord_key(r[f"{arch}/{mname}/coord"][:-1]), []).append(r)
@@ -618,10 +663,16 @@ def test_gradients_match_whole_autograd(runs, name):
     """The loss whole on every rank: each rank's param-shard gradients are
     the whole gradient's slice, and the gradients of ``x`` (and of the
     router, replicated) the whole gradient (the shard-local MoE's
-    collectives follow ``tensor_parallel.py``'s rule over ``model``)."""
+    collectives follow ``tensor_parallel.py``'s rule over ``model``).  The
+    "_dp" cases hold every param whole, each rank using its expert shard
+    (``take_shard``), and drop tokens: the whole gradient of every param on
+    every rank."""
     _, ranks = runs
     for r in ranks:
-        assert int(r[f"grad/{name}/split_leaves"]) > 0
+        split = int(r[f"grad/{name}/split_leaves"])
+        assert split == 0 if is_dp(name) else split > 0
+        if is_dp(name):
+            assert float(r[f"grad/{name}/drop_frac"]) > 0
         errs = dict(zip(r[f"grad/{name}/names"], r[f"grad/{name}/errs"]))
         assert all(e < GRAD_TOL for e in errs.values()), errs
 
